@@ -1,0 +1,42 @@
+"""PyTorch/CUDA port of ``repro`` (the JAX/Pallas reference package).
+
+``repro_torch`` imports torch and numpy only — never ``jax`` and no module
+of ``repro`` — and runs on ``"cuda"`` unless a caller passes
+``device="cpu"``. It keeps ``repro``'s layouts (NHWC images, HWIO conv
+weights, the same parameter-dict keys), so tensors cross between the two
+packages unchanged through numpy (``convert``).
+
+Module map (port -> reference):
+
+=======================================  =================================================
+``repro_torch.utils``                    ``repro.utils`` (tree_bytes, tree_flatten_to_vector,
+                                         dbm_to_watt, db_to_linear)
+``repro_torch.convert``                  (new) numpy <-> port parameter dicts
+``repro_torch.data.synthetic``           ``repro.data.synthetic`` (make_dataset; numpy copy)
+``repro_torch.data.partition``           ``repro.data.partition`` (numpy copy)
+``repro_torch.core.cost_model``          ``repro.core.cost_model`` (eqs. 4-14, no traces)
+``repro_torch.models.layers``            ``repro.models.layers`` (he_normal)
+``repro_torch.models.cnn``               ``repro.models.cnn``
+``repro_torch.models.spec``              ``repro.models.spec`` (cnn_spec)
+``repro_torch.configs.registry``         ``repro.configs.registry`` (get_hfl_spec, hfl-cnn)
+``repro_torch.core.local_train``         ``repro.core.local_train``
+``repro_torch.core.hfl``                 ``repro.core.hfl`` (uncompressed Algorithm 1)
+``repro_torch.core.resource``            ``repro.core.resource`` (problem 27)
+``repro_torch.core.clustering``          ``repro.core.clustering``
+``repro_torch.core.scheduling``          ``repro.core.scheduling`` (device_clustering;
+                                         vectorized schedulers, numpy copies)
+``repro_torch.core.assignment.geo``      ``repro.core.assignment.geo`` (GeoAssigner)
+``repro_torch.core.framework``           ``repro.core.framework`` (fused engine)
+``repro_torch.kernels.hier_agg.ops``     ``repro.kernels.hier_agg`` masked_aggregate
+``repro_torch.kernels.kmeans_dist.ops``  ``repro.kernels.kmeans_dist`` pairwise_sq_dists
+``repro_torch.kernels.build``            (new) nvcc build + ctypes loading
+=======================================  =================================================
+
+CUDA kernels (``csrc/``, built for ``sm_90a`` at first use) and the
+Pallas functions they replace:
+
+* ``csrc/hier_agg.cu`` ->
+  ``repro/kernels/hier_agg/hier_agg.py:masked_aggregate_batched_pallas``
+* ``csrc/kmeans_dist.cu`` ->
+  ``repro/kernels/kmeans_dist/kmeans_dist.py:pairwise_sq_dists_pallas``
+"""

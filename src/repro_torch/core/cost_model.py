@@ -1,0 +1,200 @@
+"""HFL system/cost model — paper §III-B, equations (4)–(14), Table I.
+
+Port of ``repro.core.cost_model`` (without the availability traces). All
+quantities SI: seconds, joules, hertz, watts, bits. The wireless network
+is simulated: 128.1 + 37.6 log10(d_km) path loss with 8 dB log-normal
+shadowing, FDMA uplink (6), and static edge->cloud links (11)-(12).
+Population arrays are drawn in float64 with numpy in the reference's
+order and cast to float32 tensors, so both packages see the same world.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.utils import dbm_to_watt, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemParams:
+    """Table I."""
+    n_devices: int = 100
+    n_edges: int = 5
+    area_km: float = 1.0
+    u_range: tuple = (1e4, 1e5)            # CPU cycles / sample
+    d_range: tuple = (400, 700)            # local dataset sizes D_n
+    edge_bw_range: tuple = (0.5e6, 3e6)    # B_m  [Hz]
+    cloud_bw: float = 10e6                 # B    [Hz]
+    p_dbm_range: tuple = (0.0, 23.0)       # device transmit power
+    p_edge_dbm: float = 23.0               # edge transmit power
+    f_max: float = 2e9                     # max CPU frequency [Hz]
+    noise_dbm_hz: float = -174.0           # N0
+    alpha: float = 2e-28                   # effective capacitance (α/2 coeff)
+    shadow_db: float = 8.0
+    L: int = 5                             # local iterations
+    Q: int = 5                             # edge iterations
+    lam: float = 1.0                       # λ
+    model_bits: float = 448e3 * 8          # z (FashionMNIST CNN default)
+
+    @property
+    def n0_w_hz(self) -> float:
+        return dbm_to_watt(self.noise_dbm_hz)
+
+
+@dataclasses.dataclass
+class Population:
+    """A sampled IoT population: device features + channel gains (f32
+    tensors on one device) and the host-side positions."""
+    u: torch.Tensor          # (N,) cycles/sample
+    D: torch.Tensor          # (N,) samples
+    p: torch.Tensor          # (N,) transmit power [W]
+    f_max: torch.Tensor      # (N,) [Hz]
+    g: torch.Tensor          # (N, M) mean uplink channel gain to each edge
+    g_cloud: torch.Tensor    # (M,) edge->cloud gain
+    B_m: torch.Tensor        # (M,) edge bandwidth [Hz]
+    dev_pos: np.ndarray      # (N, 2) km
+    edge_pos: np.ndarray     # (M, 2) km
+
+    @property
+    def n_devices(self) -> int:
+        return self.g.shape[0]
+
+    @property
+    def n_edges(self) -> int:
+        return self.g.shape[1]
+
+
+def _gain(rng: np.random.Generator, dist_km: np.ndarray, shadow_db: float):
+    d = np.maximum(dist_km, 0.01)
+    pl_db = 128.1 + 37.6 * np.log10(d)
+    shadow = rng.normal(0.0, shadow_db, d.shape)
+    return 10 ** (-(pl_db + shadow) / 10.0)
+
+
+def sample_population(sp: SystemParams, seed: int = 0,
+                      device="cuda") -> Population:
+    """Devices and edges uniform in the square; cloud at the centre."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    rng = np.random.default_rng(seed)
+    N, M = sp.n_devices, sp.n_edges
+    dev_pos = rng.uniform(0, sp.area_km, (N, 2))
+    edge_pos = rng.uniform(0, sp.area_km, (M, 2))
+    cloud_pos = np.array([sp.area_km / 2, sp.area_km / 2])
+    d_ne = np.linalg.norm(dev_pos[:, None] - edge_pos[None], axis=-1)
+    d_mc = np.linalg.norm(edge_pos - cloud_pos, axis=-1)
+    return Population(
+        u=f32(rng.uniform(*sp.u_range, N)),
+        D=f32(rng.integers(sp.d_range[0], sp.d_range[1] + 1, N)
+              .astype(np.float64)),
+        p=f32(dbm_to_watt(rng.uniform(*sp.p_dbm_range, N))),
+        f_max=torch.full((N,), sp.f_max, dtype=torch.float32, device=dev),
+        g=f32(_gain(rng, d_ne, sp.shadow_db)),
+        g_cloud=f32(_gain(rng, d_mc, sp.shadow_db)),
+        B_m=f32(rng.uniform(*sp.edge_bw_range, M)),
+        dev_pos=dev_pos, edge_pos=edge_pos)
+
+
+# ------------------------------------------------------- eqs (4)-(8)
+
+def t_cmp(sp: SystemParams, u, D, f):
+    """(4): per-edge-iteration computation delay."""
+    return sp.L * u * D / f
+
+
+def e_cmp(sp: SystemParams, u, D, f):
+    """(5): per-edge-iteration computation energy."""
+    return sp.alpha / 2.0 * sp.L * torch.square(f) * u * D
+
+
+def uplink_rate(sp: SystemParams, b, g, p):
+    """(6): FDMA uplink rate [bit/s].
+
+    Numerics: computed as ((g*p)/N0) / b — never forming N0*b ~ 1e-15,
+    whose square underflows f32 in the division's gradient (d(1/y)/dy =
+    -1/y^2) and turns every gradient-based consumer's result into NaN.
+    """
+    b = torch.clamp_min(b, 1.0)
+    snr = (g * p / sp.n0_w_hz) / b
+    return b * torch.log2(1.0 + snr)
+
+
+def t_com(sp: SystemParams, b, g, p, model_bits=None):
+    """(7)."""
+    z = sp.model_bits if model_bits is None else model_bits
+    return z / uplink_rate(sp, b, g, p)
+
+
+def e_com(sp: SystemParams, b, g, p, model_bits=None):
+    """(8)."""
+    return p * t_com(sp, b, g, p, model_bits)
+
+
+# ------------------------------------------------------ eqs (9)-(12)
+
+def edge_round_cost(sp: SystemParams, u, D, p, g, b, f, mask,
+                    model_bits=None):
+    """(9),(10) for one edge: masked devices; returns (T_edge, E_edge)."""
+    tc = t_cmp(sp, u, D, f) + t_com(sp, b, g, p, model_bits)
+    ec = e_cmp(sp, u, D, f) + e_com(sp, b, g, p, model_bits)
+    T_edge = sp.Q * torch.max(torch.where(mask, tc, 0.0))
+    E_edge = sp.Q * torch.sum(torch.where(mask, ec, 0.0))
+    return T_edge, E_edge
+
+
+def cloud_cost(sp: SystemParams, g_cloud_m, model_bits=None):
+    """(11),(12) for one edge server."""
+    z = sp.model_bits if model_bits is None else model_bits
+    p_m = dbm_to_watt(sp.p_edge_dbm)
+    rate = sp.cloud_bw * torch.log2(1.0 + g_cloud_m * p_m /
+                                    (sp.n0_w_hz * sp.cloud_bw))
+    T_cloud = z / rate
+    return T_cloud, p_m * T_cloud
+
+
+# ------------------------------------------------------ eqs (13)-(14)
+
+def round_cost_gathered(sp: SystemParams, u, D, p, g_sel, g_cloud, assign,
+                        b, f, M: int, model_bits=None):
+    """(13)/(14) from pre-gathered cohort tensors.
+
+    u, D, p, g_sel, b, f: (H,) for the scheduled cohort, with g_sel the
+    gain of each device to its *assigned* edge; assign: (H,) int64 edge
+    ids; g_cloud: (M,). Returns (T_i, E_i, T_m, E_m).
+
+    Per-edge reductions are scatter-reduces over the assignment ids
+    (O(H), no (H, M) one-hot), into zeros, so an edge with no assigned
+    devices reduces to 0. On a card the scatter-add is made of atomic
+    adds in no fixed order, so the energy sums accumulate in float64 and
+    are rounded to f32 once: the result no longer depends on that order.
+    """
+    tc = t_cmp(sp, u, D, f) + t_com(sp, b, g_sel, p, model_bits)
+    ec = e_cmp(sp, u, D, f) + e_com(sp, b, g_sel, p, model_bits)
+    zeros = torch.zeros(M, dtype=torch.float64, device=tc.device)
+    T_edge = sp.Q * zeros.to(tc.dtype).scatter_reduce(0, assign, tc,
+                                                      "amax")     # (M,)
+    E_edge = sp.Q * zeros.scatter_add(0, assign, ec.double()).to(ec.dtype)
+    T_cl, E_cl = cloud_cost(sp, g_cloud, model_bits)
+    T_m = T_cl + T_edge
+    E_m = E_cl + E_edge
+    return torch.max(T_m), torch.sum(E_m), T_m, E_m
+
+
+def objective(sp: SystemParams, T_i, E_i):
+    """Per-round system cost E_i + λ T_i (problem (17))."""
+    return E_i + sp.lam * T_i
+
+
+def round_msg_bits(sp: SystemParams, n_uplink_msgs, n_cloud_msgs,
+                   msg_bits=None) -> float:
+    """Bits on the air in one global iteration (Fig. 7f/7g accounting):
+    ``n_uplink_msgs`` device→edge updates (Q·H synchronously) plus
+    ``n_cloud_msgs`` edge→cloud uploads (M), each ``msg_bits`` bits
+    (``sp.model_bits`` by default)."""
+    z = sp.model_bits if msg_bits is None else msg_bits
+    return float((n_uplink_msgs + n_cloud_msgs) * z)

@@ -1,0 +1,153 @@
+"""HFL training orchestration — Algorithm 1 (one global iteration) and the
+hierarchical aggregation equations (2)-(3), plus test evaluation.
+
+Port of ``repro.core.hfl`` (uncompressed path). At global iteration i the
+scheduled cohort is partitioned over M edge servers. Each of Q edge
+iterations runs L local full-batch GD steps per device from that
+device's *edge* model, then data-size-weighted edge aggregation (2).
+After Q edge iterations the cloud aggregates the edge models weighted by
+their cohort data sizes (3).
+
+Aggregation has two backends selected by ``agg_kernel``: a masked matmul
+against the assignment one-hot (the parity oracle), or the
+``kernels/hier_agg`` masked aggregation, which builds the normalised
+(M, H) weight panel from the one-hot and the device sizes itself (the
+CUDA kernel on a card, its plain version on the CPU). Both share the
+empty-edge keep (edges with no devices keep their model) and give empty
+edges zero cloud weight.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.local_train import cohort_local_sgd
+from repro_torch.data.partition import FederatedData
+from repro_torch.kernels.hier_agg.ops import masked_aggregate
+from repro_torch.utils import Params, Stopwatch, phase, resolve_device
+
+
+def pad_device_data(fed: FederatedData, device="cuda"):
+    """-> X (N, Dmax, ...) in the source dtype, y (N, Dmax) int64,
+    mask (N, Dmax) f32, all on ``device``."""
+    dev = resolve_device(device)
+    N = fed.n_devices
+    Dmax = int(max(len(y) for y in fed.y))
+    sample_shape = fed.X[0].shape[1:]
+    X = np.zeros((N, Dmax, *sample_shape), fed.X[0].dtype)
+    y = np.zeros((N, Dmax), np.int64)
+    mask = np.zeros((N, Dmax), np.float32)
+    for n in range(N):
+        d = len(fed.y[n])
+        X[n, :d] = fed.X[n][:d]
+        y[n, :d] = fed.y[n][:d]
+        mask[n, :d] = 1.0
+    return (torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
+                              y, mask, sizes, assign, *, M: int, L: int,
+                              Q: int, lr: float, agg_kernel: bool = False,
+                              stopwatch: Optional[Stopwatch] = None
+                              ) -> Params:
+    """Algorithm 1 on the scheduled cohort; returns new global params.
+
+    X/y/mask: (H, Dmax, ...); sizes: (H,) D_n; assign: (H,) int64 edge
+    ids. ``agg_kernel=True`` routes eqs. (2)-(3) through
+    ``kernels.hier_agg.masked_aggregate`` (the one-hot and sizes go in
+    raw). A ``stopwatch`` splits the time into "train" and "aggregate".
+    """
+    H = sizes.shape[0]
+    onehot = F.one_hot(assign, M).float()                      # (H, M)
+    w_dev = sizes.float()                                      # D_n
+    edge_tot = onehot.T @ w_dev                                # (M,) D_{N_m}
+    has_dev = edge_tot > 0
+
+    if agg_kernel:
+        mask_edge = onehot.T.contiguous()
+
+        def edge_aggregate(flat):
+            return masked_aggregate(mask_edge, w_dev, flat)
+
+        # eq. (3) = the same kernel with an all-ones (1, M) mask over the
+        # per-edge cohort sizes D_{N_m} (empty edges weigh 0 already)
+        ones = torch.ones((1, M), dtype=torch.float32, device=w_dev.device)
+
+        def cloud_aggregate(flat):
+            return masked_aggregate(ones, edge_tot, flat)[0]
+    else:
+        w_edge = (onehot.T * w_dev[None, :]) \
+            / torch.clamp_min(edge_tot, 1.0)[:, None]          # (M, H)
+        w_cloud = torch.where(has_dev, edge_tot, 0.0)
+        w_cloud = w_cloud / torch.clamp_min(torch.sum(w_cloud), 1.0)
+
+        def edge_aggregate(flat):
+            return w_edge @ flat
+
+        def cloud_aggregate(flat):
+            return w_cloud @ flat
+
+    # edge models start from the global model
+    edge_params = {k: g[None].expand((M,) + g.shape)
+                   for k, g in global_params.items()}
+    for _ in range(Q):
+        with phase(stopwatch, "train"):
+            # each device pulls its edge's model
+            dev_params = {k: e[assign] for k, e in edge_params.items()}
+            dev_params = cohort_local_sgd(apply_fn, dev_params, X, y, mask,
+                                          L, lr)
+        with phase(stopwatch, "aggregate"):
+            # (2): weighted average per edge; empty edges keep their model
+            new_edge = {}
+            for k, delta in dev_params.items():
+                old = edge_params[k]
+                new = edge_aggregate(delta.reshape(H, -1)).reshape(old.shape)
+                keep = has_dev.reshape((M,) + (1,) * (delta.dim() - 1))
+                new_edge[k] = torch.where(keep, new, old).to(old.dtype)
+            edge_params = new_edge
+
+    # (3): cloud aggregation, weights D_{N_m} (empty edges weigh 0)
+    with phase(stopwatch, "aggregate"):
+        return {k: cloud_aggregate(e.reshape(M, -1)).reshape(e.shape[1:])
+                .to(e.dtype) for k, e in edge_params.items()}
+
+
+@torch.no_grad()
+def _count_correct(apply_fn: Callable, params: Params, X, y, valid) -> int:
+    """Correct predictions among rows where ``valid > 0`` (exact int)."""
+    hit = (torch.argmax(apply_fn(params, X), dim=-1) == y) & (valid > 0)
+    return int(hit.sum())
+
+
+def evaluate_in_batches(apply_fn: Callable, params: Params, X_test, y_test,
+                        batch: int = 512) -> float:
+    """Test accuracy in batches of ``batch`` samples on the params'
+    device. The ragged tail is padded to the batch shape with a validity
+    mask and correct answers are counted as integers, so the result is
+    the exact sample-weighted accuracy."""
+    X_test = np.asarray(X_test)
+    y_test = np.asarray(y_test)
+    n = len(y_test)
+    if n == 0:
+        return 0.0
+    dev = next(iter(params.values())).device
+    batch = min(batch, n)
+    correct = 0
+    for i in range(0, n, batch):
+        Xc, yc = X_test[i:i + batch], y_test[i:i + batch]
+        k = len(yc)
+        valid = np.zeros(batch, np.float32)
+        valid[:k] = 1.0
+        if k < batch:       # pad the ragged tail to the chunk shape
+            Xc = np.concatenate(
+                [Xc, np.zeros((batch - k, *Xc.shape[1:]), Xc.dtype)])
+            yc = np.concatenate([yc, np.zeros(batch - k, yc.dtype)])
+        correct += _count_correct(
+            apply_fn, params, torch.from_numpy(Xc).to(dev),
+            torch.from_numpy(yc.astype(np.int64)).to(dev),
+            torch.from_numpy(valid).to(dev))
+    return correct / n
