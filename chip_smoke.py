@@ -13,24 +13,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card, at the main path's shapes and at edge cases, with the stated
    tolerance; prints kernel, plain and library-call times and the
    least time the card could take (bytes over the memory rate or flops
-   over the f32 rate, whichever is larger).
-3. Main path: one Table-I world at full width (N=100 devices, M=5 edges,
-   D_n in [400, 700], the paper CNN of 457 532 bytes, H=50, K=10, IKC
-   scheduling, geo assignment, 200-step allocation) through
-   ``HFLFramework``: the Algorithm-2 clustering and 2 rounds, with both
-   kernels on. The launch counters are zeroed just before and read just
-   after; each must match the count the path implies. Every output must
-   be finite.
-4. Oracle round: a third round from the same state, once with the
-   kernel aggregation and once with the plain matmul aggregation
-   (``agg_kernel=False``): T_i and E_i must be equal and the parameters
-   within the stated tolerance.
+   over the f32 rate, whichever is larger). The decode-aggregate kernel
+   is checked for each wire dtype (int8, bf16, f32).
+3. Main paths: one Table-I world at full width (N=100 devices, M=5
+   edges, D_n in [400, 700], the paper CNN of 457 532 bytes, H=50,
+   K=10, IKC scheduling, geo assignment, 200-step allocation) through
+   ``HFLFramework``, with the kernels on:
+   a. uncompressed: the Algorithm-2 clustering and 2 rounds;
+   b. the int8 codec for 2 rounds from the same init and clustering
+      (same cohorts): msg_bits must fall by more than 3.9x and T_i, E_i
+      must fall against the uncompressed rounds;
+   c. one bf16_delta round and one topk round;
+   d. ``aggregate_pytrees`` over H copies of the trained params with
+      round 2's normalised edge panel.
+   Before each path every launch counter is zeroed; just after it they
+   are read and must match the counts the path implies. Every output
+   must be finite.
+4. Oracle rounds, from forks of the same state: a third uncompressed
+   round with the kernel aggregation against the plain matmul
+   (``agg_kernel=False``; T_i and E_i equal, params within PARAM_TOL)
+   and against ``engine="sequential"`` (T_i/E_i to rtol 1e-5, params
+   within PARAM_TOL); a third int8 round with the kernel against the
+   plain decode-and-matmul (same noise; T_i and E_i equal; params and
+   both error-feedback residuals held by the share of elements that
+   differ, within two int8 quanta; the shares and the fraction of
+   differing q printed).
 5. Where the time goes: the setup once more (without PyTorch's one-off
-   imports) and a fourth round under ``torch.profiler``: device busy
-   time against wall time, and the kernels that took the most.
+   imports) and a fourth uncompressed round under ``torch.profiler``:
+   device busy time against wall time, and the kernels that took the
+   most.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel
+(the decode-aggregate kernel once per wire dtype); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -51,7 +66,25 @@ sys.path.insert(0, str(ROOT / "src"))
 AGG_TOL = 1e-5          # |kernel - plain| <= AGG_TOL * (1 + |plain|)
 DIST_TOL = 1e-5         # |kernel - plain| <= DIST_TOL * (max|plain| + |plain|)
 PARAM_TOL = 1e-4        # kernel vs plain-matmul round: max |Δparam|
+# int8 kernel vs plain-decode round: at most FLIP_SHARE of the elements
+# of the params and of each error-feedback residual may differ by more
+# than FLIP_ATOL, none by two int8 quanta. The two aggregations differ by
+# ~1e-8, which training grows to ~1e-7 (below FLIP_ATOL), but a flipped q
+# moves its residual by one scale (~1e-4) and its edge model element by
+# ~scale/10 (> FLIP_ATOL): with ~1e-3 of q flipped per hop, Q=5 hops and
+# ~10 devices an edge, up to 5 x 10 x 1e-3 = 5e-2 of the elements can
+# see a flip. A wrong aggregation moves nearly all of them.
+FLIP_ATOL, FLIP_SHARE = 1e-5, 5e-2
 F32_FLOPS = 67e12       # H100/H200 SXM f32 rate outside the tensor cores
+LEAVES = (375, 10500, 101248, 2260)               # conv1, conv2, fc1, fc2
+AGG_CASES = ([("edge", 1, 5, 50, P, ()) for P in LEAVES]
+             + [("cloud", 1, 1, 5, P, ()) for P in LEAVES]
+             + [("empty-edges", 1, 5, 50, 10500, (1, 3)),
+                ("unaligned", 1, 3, 13, 257, ()),
+                ("lanes", 3, 5, 50, 10500, ()),
+                ("large-H", 1, 5, 4096, 10500, ()),
+                ("M>8", 1, 12, 50, 2260, (4,))])
+WIRE = (("int8", "i8"), ("bfloat16", "bf16"), ("float32", "f32"))
 
 
 def check(cond, msg):
@@ -105,6 +138,42 @@ def agg_case(torch, dev, rng, S, M, H, P, empty=()):
                  for a in (mask, sizes, deltas))
 
 
+def bench_agg(torch, rate, label, case, run, plain, library, nbytes, acc):
+    """Check one aggregation call against its plain version, time kernel,
+    plain and library call, print a line and add an edge-hop case into
+    ``acc`` (sums over the four leaves of one edge iteration)."""
+    tag, S, M, H, P, empty = case
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(bool(((got - ref).abs() <= AGG_TOL * (1 + ref.abs())).all()),
+          f"{label} {tag} S={S} M={M} H={H} P={P}: max_abs_err {err}")
+    for m in empty:
+        check(bool((got[:, m] == 0).all()), f"{label}: empty edge {m} not 0")
+    reps = 50 if H * P > 1e7 else 200
+    t_k, e_k = time_ms(run, reps)
+    t_p, e_p = time_ms(plain, reps)
+    t_l, e_l = time_ms(library, reps)
+    flops = 2 * S * M * H * P
+    bound = max(nbytes / rate, flops / F32_FLOPS) * 1e3
+    print(f"{label} {tag:11s} S={S} M={M:2d} H={H:4d} P={P:6d}: "
+          f"kernel_ms={t_k:.5f} plain_ms={t_p:.5f} library_ms={t_l:.5f} "
+          f"bound_us={bound * 1e3:.3f} max_abs_err={err:.3e} | eager "
+          f"kernel/plain/library_ms={e_k:.5f}/{e_p:.5f}/{e_l:.5f}")
+    acc["err"] = max(acc.get("err", 0.0), err)
+    if tag == "edge":                           # one edge iteration
+        for k, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                     ("eager_ms", e_k), ("bytes", nbytes), ("flops", flops)):
+            acc[k] = acc.get(k, 0) + v
+
+
+def finish(acc, rate):
+    by_bytes, by_flops = acc.pop("bytes") / rate, acc.pop("flops") / F32_FLOPS
+    acc["bound_ms"] = max(by_bytes, by_flops) * 1e3
+    acc["bound_by"] = "bytes" if by_bytes >= by_flops else "operations"
+    return acc
+
+
 def kernel_phase(torch, rate):
     from repro_torch.kernels.hier_agg import ops as ha
     from repro_torch.kernels.kmeans_dist import ops as kd
@@ -113,57 +182,59 @@ def kernel_phase(torch, rate):
     rng = np.random.default_rng(0)
     out = {}
 
-    # ---- K1 masked_aggregate: eq. (2) leaves of one edge iteration,
-    #      the eq. (3) cloud call, and edge cases
-    leaves = (375, 10500, 101248, 2260)           # conv1, conv2, fc1, fc2
-    cases = ([("edge", 1, 5, 50, P, ()) for P in leaves]
-             + [("cloud", 1, 1, 5, P, ()) for P in leaves]
-             + [("empty-edges", 1, 5, 50, 10500, (1, 3)),
-                ("unaligned", 1, 3, 13, 257, ()),
-                ("lanes", 3, 5, 50, 10500, ()),
-                ("large-H", 1, 5, 4096, 10500, ()),
-                ("M>8", 1, 12, 50, 2260, (4,))])
-    k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, eager_ms=0.0, err=0.0)
-    edge_bytes = edge_flops = 0
-    for tag, S, M, H, P, empty in cases:
-        mask, sizes, deltas = agg_case(torch, dev, rng, S, M, H, P, empty)
-        got = ha.masked_aggregate_batched(mask, sizes, deltas)
-        ref = ha.masked_aggregate_batched_ref(mask, sizes, deltas)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        check(bool(((got - ref).abs() <= AGG_TOL * (1 + ref.abs())).all()),
-              f"masked_aggregate {tag} S={S} M={M} H={H} P={P}: "
-              f"max_abs_err {err}")
-        for m in empty:
-            check(bool((got[:, m] == 0).all()), f"empty edge {m} not zero")
+    # ---- K1 masked_aggregate and K3 weighted_aggregate: eq. (2) leaves
+    #      of one edge iteration, the eq. (3) cloud call, edge cases
+    k1, k3 = {}, {}
+    for case in AGG_CASES:
+        _, S, M, H, P, _ = case
+        mask, sizes, deltas = agg_case(torch, dev, rng, S, M, H, P, case[5])
         w = mask * sizes[:, None, :]
         w = w / w.sum(2, keepdim=True).clamp_min(1.0)
-        reps = 50 if H * P > 1e7 else 200
-        t_k, e_k = time_ms(lambda: ha.masked_aggregate_batched(
-            mask, sizes, deltas), reps)
-        t_p, e_p = time_ms(lambda: ha.masked_aggregate_batched_ref(
-            mask, sizes, deltas), reps)
-        t_l, e_l = time_ms(lambda: torch.bmm(w, deltas), reps)
         nbytes = 4 * (S * M * H + S * H + S * H * P + S * M * P)
-        flops = 2 * S * M * H * P
-        bound = max(nbytes / rate, flops / F32_FLOPS) * 1e3
-        print(f"masked_aggregate {tag:11s} S={S} M={M:2d} H={H:4d} "
-              f"P={P:6d}: kernel_ms={t_k:.5f} plain_ms={t_p:.5f} "
-              f"library_ms={t_l:.5f} bound_us={bound * 1e3:.3f} "
-              f"max_abs_err={err:.3e} | eager kernel/plain/library_ms="
-              f"{e_k:.5f}/{e_p:.5f}/{e_l:.5f}")
-        k1["err"] = max(k1["err"], err)
-        if tag == "edge":                       # one edge iteration
-            k1["ms"] += t_k
-            k1["plain_ms"] += t_p
-            k1["library_ms"] += t_l
-            k1["eager_ms"] += e_k
-            edge_bytes += nbytes
-            edge_flops += flops
-    k1["bound_ms"] = max(edge_bytes / rate, edge_flops / F32_FLOPS) * 1e3
-    k1["bound_by"] = ("bytes" if edge_bytes / rate >= edge_flops / F32_FLOPS
-                      else "operations")
-    out["masked_aggregate"] = k1
+        bench_agg(torch, rate, "masked_aggregate", case,
+                  lambda: ha.masked_aggregate_batched(mask, sizes, deltas),
+                  lambda: ha.masked_aggregate_batched_ref(mask, sizes, deltas),
+                  lambda: torch.bmm(w, deltas), nbytes, k1)
+        nbytes = 4 * (S * M * H + S * H * P + S * M * P)
+        bench_agg(torch, rate, "weighted_aggregate", case,
+                  lambda: ha.weighted_aggregate_batched(w, deltas),
+                  lambda: ha.weighted_aggregate_batched_ref(w, deltas),
+                  lambda: torch.bmm(w, deltas), nbytes, k3)
+    out["masked_aggregate"] = finish(k1, rate)
+    out["weighted_aggregate"] = finish(k3, rate)
+
+    # ---- K4 masked_decode_aggregate, per wire dtype as the codecs emit
+    #      it: int8 levels with absmax/127 scales, bf16 deltas and
+    #      dense-masked f32 (top-k) with unit scales
+    for dtype_name, short in WIRE:
+        dtype = getattr(torch, dtype_name)
+        k4 = {}
+        for case in AGG_CASES:
+            _, S, M, H, P, _ = case
+            mask, sizes, deltas = agg_case(torch, dev, rng, S, M, H, P,
+                                           case[5])
+            if dtype == torch.int8:
+                scales = deltas.abs().amax(2) / 127.0
+                q = torch.clamp(torch.floor(deltas / scales[..., None]
+                                            + torch.rand_like(deltas)),
+                                -127, 127).to(torch.int8)
+            else:
+                scales = torch.ones(S, H, device=dev)
+                q = (deltas.to(dtype) if dtype == torch.bfloat16 else
+                     deltas * (torch.rand_like(deltas) < 0.05))
+            w = mask * sizes[:, None, :]
+            w = w / w.sum(2, keepdim=True).clamp_min(1.0)
+            wsc = w * scales[:, None, :]
+            nbytes = (4 * (S * M * H + 2 * S * H + S * M * P)
+                      + S * H * P * q.element_size())
+            bench_agg(torch, rate, f"masked_decode_aggregate[{dtype_name}]",
+                      case,
+                      lambda: ha.masked_decode_aggregate_batched(
+                          mask, sizes, scales, q),
+                      lambda: ha.masked_decode_aggregate_batched_ref(
+                          mask, sizes, scales, q),
+                      lambda: torch.bmm(wsc, q.float()), nbytes, k4)
+        out[f"masked_decode_aggregate_{short}"] = finish(k4, rate)
 
     # ---- K2 pairwise_sq_dists: the clustering's shape and K > 128
     k2 = {}
@@ -201,15 +272,65 @@ def kernel_phase(torch, rate):
 
 def fork(fw, **cfg_changes):
     """A framework sharing ``fw``'s world, with its own copy of the
-    round state (params, scheduler, rng), so two rounds can start from
-    the same state."""
+    round state (params, codec residuals, scheduler, rng), so two rounds
+    can start from the same state."""
     twin = copy.copy(fw)
     twin.cfg = dataclasses.replace(fw.cfg, **cfg_changes)
     twin.scheduler = copy.deepcopy(fw.scheduler)
     twin.rng = copy.deepcopy(fw.rng)
     twin.model_params = {k: v.clone() for k, v in fw.model_params.items()}
+    if fw.codec_state is not None:
+        twin.codec_state = tuple({k: v.clone() for k, v in part.items()}
+                                 for part in fw.codec_state)
     twin.history = list(fw.history)
     return twin
+
+
+def differing(got, want, atol):
+    """(share of the elements of two dicts of tensors that differ by more
+    than atol, largest |difference|)."""
+    bad = n = 0
+    dmax = 0.0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        bad += int((d > atol).sum())
+        n += w.numel()
+        dmax = max(dmax, float(d.max()))
+    return bad / n, dmax
+
+
+def record_assignments(fw):
+    """Wrap ``fw.assigner.assign`` to log each round's (cohort,
+    assignment); forks share the assigner, so they log into it too."""
+    log, real = [], fw.assigner.assign
+
+    def spy(pop, sched, rng=None):
+        out = real(pop, sched, rng)
+        log.append((np.array(sched), np.array(out[0])))
+        return out
+    fw.assigner.assign = spy
+    return log
+
+
+def run_rounds(torch, fw, rounds, label):
+    recs = []
+    for i in rounds:
+        t0 = time.perf_counter()
+        rec = fw.run_round(i)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        split = " ".join(f"{k}={v:.4f}" for k, v in rec["seconds"].items())
+        print(f"{label} round {i}: acc={rec['acc']:.4f} T_i={rec['T_i']:.4f} "
+              f"E_i={rec['E_i']:.4f} msg_bits={rec['msg_bits']:.0f} "
+              f"wall_s={rec['wall_s']:.4f} [{split}] "
+              f"max_memory_allocated={rec['max_memory_allocated']}")
+        check(all(math.isfinite(rec[k]) for k in ("acc", "T_i", "E_i")),
+              f"{label} round {i} record not finite: {rec}")
+        recs.append(rec)
+    check(all(bool(torch.isfinite(v).all())
+              for v in fw.model_params.values()),
+          f"{label}: non-finite params")
+    return recs
 
 
 def main() -> int:
@@ -223,12 +344,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    from repro_torch.core import compression as comp
     from repro_torch.core.cost_model import SystemParams, sample_population
     from repro_torch.core.framework import FrameworkConfig, HFLFramework
     from repro_torch.data import make_dataset, partition_noniid
     from repro_torch.kernels import build
     from repro_torch.kernels.hier_agg import ops as ha
     from repro_torch.kernels.kmeans_dist import ops as kd
+
+    counters = {"masked_aggregate": ha.masked_aggregate_batched_cuda,
+                "pairwise_sq_dists": kd.pairwise_sq_dists_cuda,
+                "masked_decode_aggregate":
+                    ha.masked_decode_aggregate_batched_cuda,
+                "weighted_aggregate": ha.weighted_aggregate_batched_cuda}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts(label, expect):
+        got = {k: fn.launches for k, fn in counters.items()}
+        expect = {k: expect.get(k, 0) for k in counters}
+        print(f"{label} launches: {got} (expected {expect})")
+        check(got == expect, f"{label}: launch counts differ from the path's")
+        return got
 
     # ------------------------------------------------------------ setup
     t0 = time.perf_counter()
@@ -238,7 +377,8 @@ def main() -> int:
           f"({' '.join(a for a in build.NVCC_FLAGS if 'sm_' in a)})")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -254,7 +394,7 @@ def main() -> int:
     # ---------------------------------------------------------- kernels
     kres = kernel_phase(torch, rate)
 
-    # -------------------------------------------------------- main path
+    # ------------------------------------------- main path: uncompressed
     sp = SystemParams()
     pop = sample_population(sp, seed=0)
     X, y, Xt, yt = make_dataset("fmnist_syn")
@@ -263,8 +403,7 @@ def main() -> int:
     cfg = FrameworkConfig(H=50, K=10, scheduler="ikc", assigner="geo",
                           agg_kernel=True, use_kernel=True, alloc_steps=200)
     torch.cuda.reset_peak_memory_stats()
-    ha.masked_aggregate_batched_cuda.launches = 0
-    kd.pairwise_sq_dists_cuda.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     fw = HFLFramework(sp, pop, fed, cfg)
     setup_s = time.perf_counter() - t0
@@ -274,33 +413,91 @@ def main() -> int:
           f"{fw.clustering_stats['ari']:.3f}, clustering delay="
           f"{fw.clustering_stats['delay_s']:.3f} s energy="
           f"{fw.clustering_stats['energy_j']:.3f} J")
-    for i in (1, 2):
-        t0 = time.perf_counter()
-        rec = fw.run_round(i)
-        rec["wall_s"] = time.perf_counter() - t0
-        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        split = " ".join(f"{k}={v:.4f}" for k, v in rec["seconds"].items())
-        print(f"round {i}: acc={rec['acc']:.4f} T_i={rec['T_i']:.4f} "
-              f"E_i={rec['E_i']:.4f} wall_s={rec['wall_s']:.4f} [{split}] "
-              f"max_memory_allocated={rec['max_memory_allocated']}")
-        check(all(math.isfinite(rec[k]) for k in ("acc", "T_i", "E_i")),
-              f"round {i} record not finite: {rec}")
-    launches = {"masked_aggregate": ha.masked_aggregate_batched_cuda.launches,
-                "pairwise_sq_dists": kd.pairwise_sq_dists_cuda.launches}
+    assigned = record_assignments(fw)
+    recs = run_rounds(torch, fw, (1, 2), "uncompressed")
     # K1: per round Q edge aggregations + 1 cloud one, per leaf; K2: per
     # restart (8) K-1 kmeans++ passes, 50 Lloyd steps and the labels
     n_leaves = len(fw.model_params)
-    expect = {"masked_aggregate": 2 * (sp.Q + 1) * n_leaves,
-              "pairwise_sq_dists": 8 * ((cfg.K - 1) + 50 + 1)}
-    print(f"main-path launches: {launches} (expected {expect})")
-    check(all(v > 0 for v in launches.values()), "a kernel never launched")
-    check(launches == expect, "launch counts differ from the path's")
-    check(all(bool(torch.isfinite(v).all())
-              for v in fw.model_params.values()), "non-finite params")
+    per_round = (sp.Q + 1) * n_leaves
+    launches = read_counts("uncompressed path", {
+        "masked_aggregate": 2 * per_round,
+        "pairwise_sq_dists": 8 * ((cfg.K - 1) + 50 + 1)})
+    labels = fw.scheduler.state.clusters
 
-    # ---------------------------------------------------- oracle round
+    # ---------------------------------------------- main path: int8 codec
+    def codec_cfg(codec):
+        return dataclasses.replace(
+            cfg, compression=comp.CompressionConfig(codec=codec))
+
+    zero_counts()
+    fw8 = HFLFramework(sp, pop, fed, codec_cfg("int8"), labels=labels)
+    assigned8 = record_assignments(fw8)
+    recs8 = run_rounds(torch, fw8, (1, 2), "int8")
+    launches["masked_decode_aggregate_i8"] = read_counts(
+        "int8 path", {"masked_decode_aggregate": 2 * per_round}
+    )["masked_decode_aggregate"]
+    for i, (r, r8) in enumerate(zip(recs, recs8)):
+        check(all(np.array_equal(a, b)
+                  for a, b in zip(assigned[i], assigned8[i])),
+              f"int8 round {i + 1}: another cohort than the uncompressed")
+        ratio = r["msg_bits"] / r8["msg_bits"]
+        print(f"round {i + 1} uncompressed vs int8: msg_bits ratio "
+              f"{ratio:.4f}, T_i {r['T_i']:.4f} -> {r8['T_i']:.4f}, E_i "
+              f"{r['E_i']:.4f} -> {r8['E_i']:.4f}")
+        check(ratio > 3.9, f"int8 msg_bits ratio {ratio} <= 3.9")
+        check(r8["T_i"] < r["T_i"] and r8["E_i"] < r["E_i"],
+              "the int8 round is not cheaper than the uncompressed one")
+    check(any(bool(v.abs().max() > 0) for v in fw8.codec_state[0].values()),
+          "int8: the device residuals stayed zero")
+
+    # ------------------------------------ main path: bf16_delta and topk
+    for codec, short in (("bf16_delta", "bf16"), ("topk", "f32")):
+        zero_counts()
+        fwc = HFLFramework(sp, pop, fed, codec_cfg(codec), labels=labels)
+        run_rounds(torch, fwc, (1,), codec)
+        launches[f"masked_decode_aggregate_{short}"] = read_counts(
+            f"{codec} path", {"masked_decode_aggregate": per_round}
+        )["masked_decode_aggregate"]
+        del fwc
+
+    # ------------------------------- main path: K3 aggregate_pytrees
+    sched, assign = assigned[1]                   # round 2's cohort
+    s_t = torch.from_numpy(sched.astype(np.int64)).cuda()
+    onehot = torch.nn.functional.one_hot(
+        torch.from_numpy(assign.astype(np.int64)).cuda(), sp.n_edges).float()
+    tot = onehot.T @ pop.D[s_t]
+    w_edge = (onehot.T * pop.D[s_t][None, :]) / tot.clamp_min(1.0)[:, None]
+    copies = {k: v[None].expand((len(sched),) + v.shape)
+              for k, v in fw.model_params.items()}
+    zero_counts()
+    edge_models = ha.aggregate_pytrees(w_edge, copies)
+    torch.cuda.synchronize()
+    launches["weighted_aggregate"] = read_counts(
+        "aggregate_pytrees path", {"weighted_aggregate": n_leaves}
+    )["weighted_aggregate"]
+    err3 = 0.0
+    for k, v in copies.items():
+        ref = ha.weighted_aggregate_batched_ref(
+            w_edge[None], v.reshape(1, len(sched), -1))[0]
+        got = edge_models[k].reshape(sp.n_edges, -1)
+        err3 = max(err3, float((got - ref).abs().max()))
+        check(bool(((got - ref).abs() <= AGG_TOL * (1 + ref.abs())).all()),
+              f"aggregate_pytrees {k}: kernel differs from plain")
+        full = tot > 0        # identical copies: each edge gets the params
+        check(bool(((got[full] - fw.model_params[k].reshape(1, -1)).abs()
+                    <= AGG_TOL * (1 + ref[full].abs())).all()),
+              f"aggregate_pytrees {k}: an edge model is not the params")
+        check(bool((got[~full] == 0).all()), "empty edge row not zero")
+    print(f"aggregate_pytrees: {n_leaves} leaves, H={len(sched)}, "
+          f"M={sp.n_edges}, max_abs_err vs plain {err3:.3e}")
+    kres["weighted_aggregate"]["err"] = max(
+        kres["weighted_aggregate"]["err"], err3)
+    del copies, edge_models
+
+    # ---------------------------------------------------- oracle rounds
     plain = fork(fw, agg_kernel=False)
-    rk, rp = fw.run_round(3), plain.run_round(3)
+    seq = fork(fw, engine="sequential")
+    rk, rp, rs = fw.run_round(3), plain.run_round(3), seq.run_round(3)
     dmax = max(float((fw.model_params[k] - plain.model_params[k]).abs().max())
                for k in fw.model_params)
     print(f"round 3 kernel vs plain matmul: T_i {rk['T_i']} vs {rp['T_i']}, "
@@ -309,6 +506,59 @@ def main() -> int:
     check(rk["T_i"] == rp["T_i"] and rk["E_i"] == rp["E_i"],
           "T_i/E_i differ between the aggregation backends")
     check(dmax <= PARAM_TOL, f"params differ by {dmax}")
+    dseq = max(float((seq.model_params[k] - plain.model_params[k])
+                     .abs().max()) for k in fw.model_params)
+    rel = [abs(rs[k] - rp[k]) / abs(rp[k]) for k in ("T_i", "E_i")]
+    print(f"round 3 sequential vs fused (plain matmul): T_i {rs['T_i']} vs "
+          f"{rp['T_i']}, E_i {rs['E_i']} vs {rp['E_i']} (relative "
+          f"{rel[0]:.2e}, {rel[1]:.2e}), max |dparam| {dseq:.3e} "
+          f"(tolerance {PARAM_TOL}), seconds {rs['seconds']}")
+    check(max(rel) <= 1e-5, "sequential T_i/E_i differ beyond rtol 1e-5")
+    check(dseq <= PARAM_TOL, f"sequential params differ by {dseq}")
+    del plain, seq
+
+    plain8 = fork(fw8, agg_kernel=False)
+    sent = {}
+    real_encode = comp.encode_leaf
+
+    def spy(cfg_, delta, resid, u=None):
+        out = real_encode(cfg_, delta, resid, u)
+        sent.setdefault(tag, []).append(out[:2])
+        return out
+    comp.encode_leaf = spy
+    try:
+        tag = "kernel"
+        rk8 = fw8.run_round(3)
+        tag = "plain"
+        rp8 = plain8.run_round(3)
+    finally:
+        comp.encode_leaf = real_encode
+    quantum = max(float(sc.max()) for _, sc in sent["kernel"] + sent["plain"])
+    flips = sum(int((a[0] != b[0]).sum())
+                for a, b in zip(sent["kernel"], sent["plain"]))
+    n_q = sum(a[0].numel() for a in sent["kernel"])
+    print(f"int8 round 3 kernel vs plain decode+matmul: T_i {rk8['T_i']} vs "
+          f"{rp8['T_i']}, E_i {rk8['E_i']} vs {rp8['E_i']}, differing q "
+          f"{flips} of {n_q} ({flips / n_q:.2e}); cap 2 x largest int8 "
+          f"scale = {2 * quantum:.3e}")
+    check(len(sent["kernel"]) == len(sent["plain"]) == per_round,
+          "int8 oracle: another number of messages")
+    check(rk8["T_i"] == rp8["T_i"] and rk8["E_i"] == rp8["E_i"],
+          "int8: T_i/E_i differ between the aggregation backends")
+    shares = {}
+    for what, got, want in (
+            ("params", fw8.model_params, plain8.model_params),
+            ("device residuals", fw8.codec_state[0], plain8.codec_state[0]),
+            ("edge residuals", fw8.codec_state[1], plain8.codec_state[1])):
+        shares[what] = differing(got, want, FLIP_ATOL)
+        print(f"  int8 {what}: {shares[what][0]:.3e} of the elements "
+              f"differ by more than {FLIP_ATOL:g} (limit {FLIP_SHARE:g}), "
+              f"max |diff| {shares[what][1]:.3e}")
+    for what, (frac, dmax) in shares.items():
+        check(frac <= FLIP_SHARE, f"int8 {what}: {frac:.3e} of the "
+              f"elements differ")
+        check(dmax <= 2 * quantum, f"int8 {what} differ by {dmax}")
+    del plain8, sent
 
     # ------------------------------------------------ where time goes
     # setup again: the first construction also paid PyTorch's one-off
@@ -334,20 +584,31 @@ def main() -> int:
               f"x{e.count}" for e in top))
 
     # ----------------------------------------------------------- result
+    src = "src/repro_torch/csrc/hier_agg.cu"
+    hier = "src/repro/kernels/hier_agg/hier_agg.py"
+    edge_work = "one edge iteration: 4 leaf launches, H=50, M=5, " \
+                "P=375+10500+101248+2260"
     routes = {
-        "masked_aggregate": ("src/repro_torch/csrc/hier_agg.cu",
-                             "src/repro/kernels/hier_agg/hier_agg.py:111",
-                             "one edge iteration: 4 leaf launches, H=50, "
-                             "M=5, P=375+10500+101248+2260"),
-        "pairwise_sq_dists": ("src/repro_torch/csrc/kmeans_dist.cu",
-                              "src/repro/kernels/kmeans_dist/kmeans_dist.py:50",
-                              "one launch, N=100, P=1640, K=10")}
+        "masked_aggregate": ("masked_aggregate", src, f"{hier}:111",
+                             edge_work),
+        "pairwise_sq_dists": ("pairwise_sq_dists",
+                              "src/repro_torch/csrc/kmeans_dist.cu",
+                              "src/repro/kernels/kmeans_dist/"
+                              "kmeans_dist.py:50",
+                              "one launch, N=100, P=1640, K=10"),
+        "weighted_aggregate": ("weighted_aggregate", src, f"{hier}:62",
+                               edge_work),
+    }
+    for dtype_name, short in WIRE:
+        routes[f"masked_decode_aggregate_{short}"] = (
+            f"masked_decode_aggregate[{dtype_name}]", src, f"{hier}:180",
+            f"{edge_work}, q {dtype_name}")
     kernels = []
-    for kname, (src, replaces, work) in routes.items():
-        r = kres[kname]
+    for key, (kname, source, replaces, work) in routes.items():
+        r = kres[key]
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "eager_ms": r["eager_ms"],

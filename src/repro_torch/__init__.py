@@ -20,14 +20,17 @@ Module map (port -> reference):
 ``repro_torch.models.spec``              ``repro.models.spec`` (cnn_spec)
 ``repro_torch.configs.registry``         ``repro.configs.registry`` (get_hfl_spec, hfl-cnn)
 ``repro_torch.core.local_train``         ``repro.core.local_train``
-``repro_torch.core.hfl``                 ``repro.core.hfl`` (uncompressed Algorithm 1)
+``repro_torch.core.compression``         ``repro.core.compression`` (codecs, error feedback)
+``repro_torch.core.hfl``                 ``repro.core.hfl`` (Algorithm 1, with codecs)
 ``repro_torch.core.resource``            ``repro.core.resource`` (problem 27)
 ``repro_torch.core.clustering``          ``repro.core.clustering``
 ``repro_torch.core.scheduling``          ``repro.core.scheduling`` (device_clustering;
                                          vectorized schedulers, numpy copies)
 ``repro_torch.core.assignment.geo``      ``repro.core.assignment.geo`` (GeoAssigner)
-``repro_torch.core.framework``           ``repro.core.framework`` (fused engine)
-``repro_torch.kernels.hier_agg.ops``     ``repro.kernels.hier_agg`` masked_aggregate
+``repro_torch.core.framework``           ``repro.core.framework`` (fused and sequential
+                                         engines, codecs; geo assignment)
+``repro_torch.kernels.hier_agg.ops``     ``repro.kernels.hier_agg`` masked_aggregate,
+                                         weighted_aggregate, masked_decode_aggregate
 ``repro_torch.kernels.kmeans_dist.ops``  ``repro.kernels.kmeans_dist`` pairwise_sq_dists
 ``repro_torch.kernels.build``            (new) nvcc build + ctypes loading
 =======================================  =================================================
@@ -36,7 +39,9 @@ CUDA kernels (``csrc/``, built for ``sm_90a`` at first use) and the
 Pallas functions they replace:
 
 * ``csrc/hier_agg.cu`` ->
-  ``repro/kernels/hier_agg/hier_agg.py:masked_aggregate_batched_pallas``
+  ``repro/kernels/hier_agg/hier_agg.py``: ``masked_aggregate_batched_pallas``,
+  ``weighted_aggregate_batched_pallas`` and
+  ``masked_decode_aggregate_batched_pallas``
 * ``csrc/kmeans_dist.cu`` ->
   ``repro/kernels/kmeans_dist/kmeans_dist.py:pairwise_sq_dists_pallas``
 """

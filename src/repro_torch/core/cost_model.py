@@ -185,6 +185,19 @@ def round_cost_gathered(sp: SystemParams, u, D, p, g_sel, g_cloud, assign,
     return torch.max(T_m), torch.sum(E_m), T_m, E_m
 
 
+def round_cost(sp: SystemParams, pop: Population, sched_idx, assign, b, f,
+               model_bits=None):
+    """One global iteration's (T_i, E_i, per-edge T_m, per-edge E_m).
+
+    sched_idx: (H,) int64 device indices; assign: (H,) int64 edge index
+    per device; b, f: (H,) allocations.
+    """
+    u, D, p = pop.u[sched_idx], pop.D[sched_idx], pop.p[sched_idx]
+    g = pop.g[sched_idx, assign]
+    return round_cost_gathered(sp, u, D, p, g, pop.g_cloud, assign, b, f,
+                               pop.n_edges, model_bits)
+
+
 def objective(sp: SystemParams, T_i, E_i):
     """Per-round system cost E_i + λ T_i (problem (17))."""
     return E_i + sp.lam * T_i

@@ -1,5 +1,5 @@
 """Algorithm 6 — the full proposed HFL framework (port of
-``repro.core.framework``, fused engine, uncompressed).
+``repro.core.framework``: fused and sequential engines, uplink codecs).
 
 Per global iteration i:
   1. schedule H devices (IKC / VKC / FedAvg),
@@ -8,17 +8,25 @@ Per global iteration i:
   4. HFL training (Algorithm 1) on the scheduled cohort,
   5. evaluate; stop when the target accuracy is reached.
 
-Steps 3+4 plus the cost bookkeeping (13)/(14) are ``round_step_core``.
-``FrameworkConfig(agg_kernel=True)`` routes the Algorithm-1 edge/cloud
-aggregation through ``kernels/hier_agg``; ``use_kernel=True`` routes the
-Algorithm-2 K-means distances through ``kernels/kmeans_dist``.
+Steps 3+4 plus the cost bookkeeping (13)/(14) are ``round_step_core``
+(``engine="fused"``: one batched allocation over all edges). The
+``engine="sequential"`` oracle solves the M allocations one by one and
+runs Algorithm 1 with the plain aggregation. ``FrameworkConfig(
+agg_kernel=True)`` routes the Algorithm-1 edge/cloud aggregation through
+``kernels/hier_agg``; ``use_kernel=True`` routes the Algorithm-2 K-means
+distances through ``kernels/kmeans_dist``. ``FrameworkConfig.compression``
+compresses both uplinks (``core.compression``; fused engine only): the
+round is priced with the codec's message bits and the error-feedback
+residuals of every device and edge persist across rounds.
 
 The framework runs on ``FrameworkConfig.device`` (``"cuda"`` unless the
 caller passes ``"cpu"``; a missing card raises). Where the reference
 draws from ``jax.random`` (weight init, crop offsets, kmeans++ seeding),
 the port draws from a ``torch.Generator`` seeded with ``cfg.seed``, and
 a caller can inject the outcome instead: ``init_params`` (the model's
-initial weights) and ``labels`` (the Algorithm-2 clustering).
+initial weights), ``labels`` (the Algorithm-2 clustering) and
+``codec_noise`` (round index -> int8 rounding-noise source; the default
+is ``compression.round_noise``, stateless per round).
 
 Every round record carries ``seconds``, the wall time of its phases
 (schedule, assign, allocate, train, aggregate, eval), each ending in a
@@ -28,14 +36,16 @@ clustering.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_hfl_spec
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import compression as comp
 from repro_torch.core import cost_model as cm
 from repro_torch.core import resource as ra
 from repro_torch.core.assignment import GeoAssigner
@@ -52,6 +62,9 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
                     g_cloud, B_m, X, y, mask, sizes, assign, lr, *,
                     M: int, L: int, Q: int, alloc_steps: int,
                     agg_kernel: bool = False,
+                    codec: Optional[comp.CompressionConfig] = None,
+                    codec_state=None,
+                    noise: Optional[comp.NoiseSource] = None,
                     stopwatch: Optional[Stopwatch] = None):
     """One global iteration minus scheduling and assignment.
 
@@ -60,6 +73,13 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
     int64. Builds the per-edge masks, solves the M allocations (27) in
     one batch, prices the round (13)/(14) and runs Algorithm 1. Returns
     (new_params, (T_i, E_i, T_m, E_m, b, f)).
+
+    With an active ``codec``, ``sp`` must already carry the codec's
+    per-message bits (``compression.message_bits``) so the allocation
+    and eqs. (7)-(12) price the compressed payload; ``codec_state`` is
+    ``(dev_resid, edge_resid)`` for the cohort (H, ...) and the edges
+    (M, ...), and ``noise`` the round's int8 noise source. The return
+    then becomes ``(new_params, (new_dev_resid, new_edge_resid), aux)``.
     """
     H = assign.shape[0]
     with phase(stopwatch, "allocate"):
@@ -72,6 +92,14 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
         g_sel = g[torch.arange(H, device=assign.device), assign]
         T_i, E_i, T_m, E_m = cm.round_cost_gathered(
             sp, u, D, p, g_sel, g_cloud, assign, b, f, M)
+    if codec is not None and codec.active:
+        dev_resid, edge_resid = codec_state
+        new_params, dev_resid, edge_resid = hfl_global_iteration_core(
+            apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q,
+            lr=lr, agg_kernel=agg_kernel, codec=codec, dev_resid=dev_resid,
+            edge_resid=edge_resid, noise=noise, stopwatch=stopwatch)
+        return new_params, (dev_resid, edge_resid), (T_i, E_i, T_m, E_m,
+                                                     b, f)
     new_params = hfl_global_iteration_core(
         apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q, lr=lr,
         agg_kernel=agg_kernel, stopwatch=stopwatch)
@@ -92,21 +120,23 @@ class FrameworkConfig:
     seed: int = 0
     use_kernel: bool = False        # kmeans_dist kernel for Algorithm 2
     agg_kernel: bool = False        # hier_agg kernel for eqs. (2)-(3)
-    engine: str = "fused"           # fused (sequential is not ported yet)
-    codec: str = "none"             # uplink codec (only "none" is ported)
+    engine: str = "fused"           # fused | sequential (per-edge oracle)
+    compression: comp.CompressionConfig = dataclasses.field(
+        default_factory=comp.CompressionConfig)   # uplink update codec
     device: str = "cuda"            # "cpu" must be asked for
 
     def __post_init__(self):
         resolve_device(self.device)
-        if self.engine != "fused":
-            raise NotImplementedError(
-                f"engine={self.engine!r} is not ported yet (ROADMAP.md)")
-        if self.codec != "none":
-            raise NotImplementedError(
-                f"codec={self.codec!r} is not ported yet (ROADMAP.md)")
-        if self.assigner != "geo":
+        if self.engine not in ("fused", "sequential"):
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.compression.active and self.engine == "sequential":
+            raise ValueError("compression requires engine='fused' (the "
+                             "sequential oracle ships raw payloads)")
+        if self.assigner in ("drl", "hfel"):
             raise NotImplementedError(
                 f"assigner={self.assigner!r} is not ported yet (ROADMAP.md)")
+        if self.assigner != "geo":
+            raise ValueError(f"unknown assigner {self.assigner!r}")
         if self.scheduler not in ("ikc", "vkc", "fedavg"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
 
@@ -115,7 +145,9 @@ class HFLFramework:
     def __init__(self, sp: cm.SystemParams, pop: cm.Population,
                  fed: FederatedData, cfg: FrameworkConfig,
                  init_params: Optional[Mapping] = None,
-                 labels: Optional[np.ndarray] = None):
+                 labels: Optional[np.ndarray] = None,
+                 codec_noise: Optional[
+                     Callable[[int], comp.NoiseSource]] = None):
         self.pop, self.fed, self.cfg = pop, fed, cfg
         self.device = resolve_device(cfg.device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -129,6 +161,22 @@ class HFLFramework:
         self.apply_fn = self.spec.apply_fn
         self.model_bits = tree_bytes(self.model_params) * 8
         self.sp = dataclasses.replace(sp, model_bits=float(self.model_bits))
+
+        # uplink codec: every uplink (device->edge, edge->cloud) ships the
+        # compressed message, so the round's allocator and cost model see
+        # its bits; with the identity codec uplink_bits == model_bits
+        self.codec = cfg.compression
+        self.uplink_bits = comp.message_bits(self.codec, self.model_params)
+        self.sp_round = dataclasses.replace(
+            self.sp, model_bits=float(self.uplink_bits))
+        self.codec_state = None
+        if self.codec.active:
+            self.codec_state = (
+                comp.init_state(self.codec, self.model_params,
+                                fed.n_devices),
+                comp.init_state(self.codec, self.model_params, pop.n_edges))
+        self.codec_noise = codec_noise or functools.partial(
+            comp.round_noise, self.codec, cfg.seed, device=self.device)
 
         self.X, self.y, self.mask = pad_device_data(fed, device=self.device)
         self.clustering_stats: Dict = {}
@@ -198,26 +246,66 @@ class HFLFramework:
 
         s = torch.from_numpy(sched.astype(np.int64)).to(dev)
         a = torch.from_numpy(assign.astype(np.int64)).to(dev)
-        self.model_params, (T_i, E_i, _, _, _, _) = round_step_core(
-            self.apply_fn, sp, self.model_params,
-            pop.u[s], pop.D[s], pop.p[s], pop.g[s], pop.g_cloud, pop.B_m,
-            self.X[s], self.y[s], self.mask[s], pop.D[s], a, self.cfg.lr,
-            M=pop.n_edges, L=sp.L, Q=sp.Q, alloc_steps=self.cfg.alloc_steps,
-            agg_kernel=self.cfg.agg_kernel, stopwatch=sw)
+        args = (pop.u[s], pop.D[s], pop.p[s], pop.g[s], pop.g_cloud,
+                pop.B_m, self.X[s], self.y[s], self.mask[s], pop.D[s], a,
+                self.cfg.lr)
+        kw = dict(M=pop.n_edges, L=sp.L, Q=sp.Q,
+                  alloc_steps=self.cfg.alloc_steps,
+                  agg_kernel=self.cfg.agg_kernel, stopwatch=sw)
+        if self.cfg.engine == "sequential":
+            T_i, E_i = self._sequential_alloc_cost_train(s, a, sw)
+        elif self.codec.active:
+            dev_resid, edge_resid = self.codec_state
+            cohort = {k: r[s] for k, r in dev_resid.items()}
+            (self.model_params, (cohort, edge_resid),
+             (T_i, E_i, _, _, _, _)) = round_step_core(
+                self.apply_fn, self.sp_round, self.model_params, *args,
+                codec=self.codec, codec_state=(cohort, edge_resid),
+                noise=self.codec_noise(i), **kw)
+            for k, full in dev_resid.items():      # scatter the cohort back
+                full[s] = cohort[k]
+            self.codec_state = (dev_resid, edge_resid)
+        else:
+            self.model_params, (T_i, E_i, _, _, _, _) = round_step_core(
+                self.apply_fn, sp, self.model_params, *args, **kw)
 
         with sw.phase("eval"):
             acc = self.spec.eval_fn(self.model_params,
                                     self.fed.X_test, self.fed.y_test)
-        msg_bits = cm.round_msg_bits(sp, sp.Q * H, pop.n_edges)
+        msg_bits = cm.round_msg_bits(sp, sp.Q * H, pop.n_edges,
+                                     msg_bits=self.uplink_bits)
         rec = {"iter": i, "acc": acc, "T_i": float(T_i), "E_i": float(E_i),
                "obj_i": float(E_i + sp.lam * T_i),
                "msg_bits": float(msg_bits),
-               "uplink_bytes": float(sp.Q * H * self.model_bits / 8),
-               "codec": self.cfg.codec,
+               "uplink_bytes": float(sp.Q * H * self.uplink_bits / 8),
+               "codec": self.codec.codec,
                "assign_latency_s": assign_latency,
                "H": H, "seconds": dict(sw.seconds)}
         self.history.append(rec)
         return rec
+
+    def _sequential_alloc_cost_train(self, s, a, sw: Stopwatch):
+        """The per-edge oracle of the fused engine: M separate
+        allocations, ``round_cost``, then Algorithm 1 with the plain
+        aggregation. s, a: (H,) int64 cohort and assignment."""
+        sp, pop = self.sp, self.pop
+        H = s.shape[0]
+        with sw.phase("allocate"):
+            b = torch.zeros(H, dtype=torch.float32, device=self.device)
+            f = torch.zeros_like(b)
+            for m in range(pop.n_edges):
+                sel = a == m
+                res = ra.allocate(sp, pop.u[s], pop.D[s], pop.p[s],
+                                  pop.g[s, m], pop.B_m[m], sel,
+                                  steps=self.cfg.alloc_steps)
+                b[sel] = res.b[sel]
+                f[sel] = res.f[sel]
+            T_i, E_i, _, _ = cm.round_cost(sp, pop, s, a, b, f)
+        self.model_params = hfl_global_iteration_core(
+            self.apply_fn, self.model_params, self.X[s], self.y[s],
+            self.mask[s], pop.D[s], a, M=pop.n_edges, L=sp.L, Q=sp.Q,
+            lr=self.cfg.lr, stopwatch=sw)
+        return T_i, E_i
 
     def run(self, verbose: bool = True) -> Dict:
         for i in range(1, self.cfg.max_iters + 1):

@@ -1,12 +1,11 @@
 """HFL training orchestration — Algorithm 1 (one global iteration) and the
 hierarchical aggregation equations (2)-(3), plus test evaluation.
 
-Port of ``repro.core.hfl`` (uncompressed path). At global iteration i the
-scheduled cohort is partitioned over M edge servers. Each of Q edge
-iterations runs L local full-batch GD steps per device from that
-device's *edge* model, then data-size-weighted edge aggregation (2).
-After Q edge iterations the cloud aggregates the edge models weighted by
-their cohort data sizes (3).
+Port of ``repro.core.hfl``. At global iteration i the scheduled cohort is
+partitioned over M edge servers. Each of Q edge iterations runs L local
+full-batch GD steps per device from that device's *edge* model, then
+data-size-weighted edge aggregation (2). After Q edge iterations the
+cloud aggregates the edge models weighted by their cohort data sizes (3).
 
 Aggregation has two backends selected by ``agg_kernel``: a masked matmul
 against the assignment one-hot (the parity oracle), or the
@@ -14,7 +13,13 @@ against the assignment one-hot (the parity oracle), or the
 (M, H) weight panel from the one-hot and the device sizes itself (the
 CUDA kernel on a card, its plain version on the CPU). Both share the
 empty-edge keep (edges with no devices keep their model) and give empty
-edges zero cloud weight.
+edges zero cloud weight. With an uplink codec both uplinks ship encoded
+deltas, and ``agg_kernel`` selects between the masked decode-aggregate
+kernel and a dense decode followed by the matmul.
+
+The reference jits the core under a second name, ``hfl_global_iteration``
+(its sequential engine's entry); PyTorch runs eagerly, so both engines
+here call ``hfl_global_iteration_core``.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import compression as comp
 from repro_torch.core.local_train import cohort_local_sgd
 from repro_torch.data.partition import FederatedData
-from repro_torch.kernels.hier_agg.ops import masked_aggregate
+from repro_torch.kernels.hier_agg.ops import (masked_aggregate,
+                                              masked_decode_aggregate)
 from repro_torch.utils import Params, Stopwatch, phase, resolve_device
 
 
@@ -52,15 +59,32 @@ def pad_device_data(fed: FederatedData, device="cuda"):
 def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
                               y, mask, sizes, assign, *, M: int, L: int,
                               Q: int, lr: float, agg_kernel: bool = False,
-                              stopwatch: Optional[Stopwatch] = None
-                              ) -> Params:
+                              codec: Optional[comp.CompressionConfig] = None,
+                              dev_resid: Optional[Params] = None,
+                              edge_resid: Optional[Params] = None,
+                              noise: Optional[comp.NoiseSource] = None,
+                              stopwatch: Optional[Stopwatch] = None):
     """Algorithm 1 on the scheduled cohort; returns new global params.
 
     X/y/mask: (H, Dmax, ...); sizes: (H,) D_n; assign: (H,) int64 edge
     ids. ``agg_kernel=True`` routes eqs. (2)-(3) through
-    ``kernels.hier_agg.masked_aggregate`` (the one-hot and sizes go in
-    raw). A ``stopwatch`` splits the time into "train" and "aggregate".
+    ``kernels.hier_agg`` (the one-hot and sizes go in raw). A
+    ``stopwatch`` splits the time into "train" and "aggregate".
+
+    With an active ``codec`` both uplinks are compressed: devices encode
+    their post-SGD delta against the edge model they pulled and edges
+    add the aggregated decoded deltas (``edge' = edge + Σ w·decode(q)``,
+    eq. (2) exactly for a lossless codec; an empty edge gets zero weight
+    mass and keeps its model). After Q edge iterations each edge encodes
+    its delta against the global model for the cloud hop (3).
+    ``dev_resid`` ((H, ...), gathered for the cohort) and ``edge_resid``
+    ((M, ...)) are the error-feedback residuals; ``noise`` gives the
+    int8 rounding uniforms per (hop, leaf). Encoding counts as
+    "aggregate" time. Returns ``(new_params, new_dev_resid,
+    new_edge_resid)`` in this mode; without a codec (``None`` or
+    ``"none"``) the uncompressed path and its single return value.
     """
+    compress = codec is not None and codec.active
     H = sizes.shape[0]
     onehot = F.one_hot(assign, M).float()                      # (H, M)
     w_dev = sizes.float()                                      # D_n
@@ -79,6 +103,14 @@ def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
 
         def cloud_aggregate(flat):
             return masked_aggregate(ones, edge_tot, flat)[0]
+
+        # compressed path: the scales fold into the kernel's panel and
+        # the wire-format q is read undecoded
+        def edge_dec_aggregate(sc, q):
+            return masked_decode_aggregate(mask_edge, w_dev, sc, q)
+
+        def cloud_dec_aggregate(sc, q):
+            return masked_decode_aggregate(ones, edge_tot, sc, q)[0]
     else:
         w_edge = (onehot.T * w_dev[None, :]) \
             / torch.clamp_min(edge_tot, 1.0)[:, None]          # (M, H)
@@ -91,29 +123,64 @@ def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
         def cloud_aggregate(flat):
             return w_cloud @ flat
 
+        # dense decode, then the matmul: the oracle of the kernel path
+        def edge_dec_aggregate(sc, q):
+            return w_edge @ comp.decode_rows(codec, q, sc)
+
+        def cloud_dec_aggregate(sc, q):
+            return w_cloud @ comp.decode_rows(codec, q, sc)
+
+    def encode(hop, name, d, r):
+        u = (noise(hop, name, tuple(d.shape)) if codec.codec == "int8"
+             else None)
+        return comp.encode_leaf(codec, d, r, u)
+
+    if compress:
+        dev_resid = dict(dev_resid)          # the caller's dict stays as is
+
     # edge models start from the global model
     edge_params = {k: g[None].expand((M,) + g.shape)
                    for k, g in global_params.items()}
-    for _ in range(Q):
+    for hop in range(Q):
         with phase(stopwatch, "train"):
             # each device pulls its edge's model
-            dev_params = {k: e[assign] for k, e in edge_params.items()}
-            dev_params = cohort_local_sgd(apply_fn, dev_params, X, y, mask,
-                                          L, lr)
+            pulled = {k: e[assign] for k, e in edge_params.items()}
+            dev_params = cohort_local_sgd(apply_fn, pulled, X, y, mask, L,
+                                          lr)
         with phase(stopwatch, "aggregate"):
-            # (2): weighted average per edge; empty edges keep their model
             new_edge = {}
-            for k, delta in dev_params.items():
+            for k, trained in dev_params.items():
                 old = edge_params[k]
-                new = edge_aggregate(delta.reshape(H, -1)).reshape(old.shape)
-                keep = has_dev.reshape((M,) + (1,) * (delta.dim() - 1))
-                new_edge[k] = torch.where(keep, new, old).to(old.dtype)
+                if compress:
+                    # (2) in delta space, on the decoded uplinks
+                    d = (trained - pulled[k]).reshape(H, -1).float()
+                    q, sc, nr = encode(hop, k, d, dev_resid[k].reshape(H, -1))
+                    dev_resid[k] = nr.reshape(dev_resid[k].shape)
+                    new = old.reshape(M, -1) + edge_dec_aggregate(sc, q)
+                    new_edge[k] = new.reshape(old.shape).to(old.dtype)
+                else:
+                    # (2): weighted average per edge; empty edges keep
+                    # their model
+                    new = edge_aggregate(trained.reshape(H, -1)).reshape(
+                        old.shape)
+                    keep = has_dev.reshape((M,) + (1,) * (trained.dim() - 1))
+                    new_edge[k] = torch.where(keep, new, old).to(old.dtype)
             edge_params = new_edge
 
     # (3): cloud aggregation, weights D_{N_m} (empty edges weigh 0)
     with phase(stopwatch, "aggregate"):
-        return {k: cloud_aggregate(e.reshape(M, -1)).reshape(e.shape[1:])
-                .to(e.dtype) for k, e in edge_params.items()}
+        if not compress:
+            return {k: cloud_aggregate(e.reshape(M, -1)).reshape(e.shape[1:])
+                    .to(e.dtype) for k, e in edge_params.items()}
+        new_global, new_edge_resid = {}, {}
+        for k, e in edge_params.items():
+            g = global_params[k]
+            d = (e.reshape(M, -1) - g.reshape(1, -1)).float()
+            q, sc, nr = encode(Q, k, d, edge_resid[k].reshape(M, -1))
+            new_global[k] = (g.reshape(-1) + cloud_dec_aggregate(sc, q)) \
+                .reshape(g.shape).to(g.dtype)
+            new_edge_resid[k] = nr.reshape(edge_resid[k].shape)
+        return new_global, dev_resid, new_edge_resid
 
 
 @torch.no_grad()

@@ -66,25 +66,6 @@ class Stopwatch:
             self.seconds[name] += time.perf_counter() - t0
 
 
-def phase(self, name: str):
-        return _Phase(self, name)
-
-
-class _Phase:
-    def __init__(self, sw: Stopwatch, name: str):
-        self.sw, self.name = sw, name
-
-    def __enter__(self):
-        synchronize(self.sw.device)
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        synchronize(self.sw.device)
-        self.sw.seconds[self.name] += time.perf_counter() - self.t0
-        return False
-
-
 def phase(stopwatch: Optional[Stopwatch], name: str):
     """``stopwatch.phase(name)``, or a no-op context without a stopwatch."""
     if stopwatch is None:

@@ -1,6 +1,8 @@
 """The slice as a whole: ``repro_torch.HFLFramework`` against
-``repro.HFLFramework`` over two Algorithm-6 rounds, plus the port's
-package rules (no JAX and no ``repro`` import, no silent CPU fallback).
+``repro.HFLFramework`` over two Algorithm-6 rounds (fused engine, and
+the ``engine="sequential"`` oracle), plus the port's package rules (no
+JAX and no ``repro`` import, no silent CPU fallback). Compressed rounds
+are in ``tests/test_torch_compression.py``.
 
 The port starts from the reference's initial weights and Algorithm-2
 labels (injected: torch cannot replay ``jax.random``) and builds its own
@@ -10,7 +12,7 @@ this world: T_i/E_i agree to 2.4e-7 relative and the final params to
 9e-8 absolute (weights of order 0.1, after 2 rounds of Q*L = 25 GD
 steps), so T_i/E_i are held to rtol 1e-5 and params to rtol 1e-5 /
 atol 1e-6; accuracy to one test sample (an f32 near-tie may flip one
-argmax).
+argmax). The sequential engine is held to the same tolerances.
 """
 import os
 import subprocess
@@ -28,6 +30,7 @@ import repro_torch.core.cost_model as tcm
 import repro_torch.data as tdata
 from repro_torch.configs.registry import get_hfl_spec
 from repro_torch.convert import params_to_numpy
+from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.framework import FrameworkConfig as TConfig
 from repro_torch.core.framework import HFLFramework as TFramework
 
@@ -56,16 +59,12 @@ def _record_calls(obj, name, log):
     setattr(obj, name, spy)
 
 
-@pytest.mark.parametrize("agg_kernel", [False, True])
-def test_two_rounds_match_reference(agg_kernel):
-    kw = dict(H=H, K=K, alloc_steps=30, scheduler="ikc", assigner="geo",
-              seed=0)
-    jf = JFramework(*_world(jcm, jdata), JConfig(agg_kernel=True, **kw))
+def _two_rounds_match_reference(jcfg, tcfg):
+    jf = JFramework(*_world(jcm, jdata), jcfg)
     labels = np.asarray(jf.scheduler.state.clusters)
     init = {k: np.asarray(v) for k, v in jf.model_params.items()}
-    tf = TFramework(*_world(tcm, tdata),
-                    TConfig(agg_kernel=agg_kernel, device="cpu", **kw),
-                    init_params=init, labels=labels)
+    tf = TFramework(*_world(tcm, tdata), tcfg, init_params=init,
+                    labels=labels)
     assert tf.clustering_stats["ari"] == jf.clustering_stats["ari"]
     assert tf.clustering_stats["aux_bits"] == jf.clustering_stats["aux_bits"]
     for k in ("delay_s", "energy_j"):
@@ -99,6 +98,34 @@ def test_two_rounds_match_reference(agg_kernel):
     np.testing.assert_allclose(st["objective"], sj["objective"], rtol=1e-5)
 
 
+_KW = dict(H=H, K=K, alloc_steps=30, scheduler="ikc", assigner="geo", seed=0)
+
+
+@pytest.mark.parametrize("agg_kernel", [False, True])
+def test_two_rounds_match_reference(agg_kernel):
+    _two_rounds_match_reference(
+        JConfig(agg_kernel=True, **_KW),
+        TConfig(agg_kernel=agg_kernel, device="cpu", **_KW))
+
+
+def test_sequential_engine_matches_reference():
+    """M per-edge allocations, ``round_cost`` and Algorithm 1 with the
+    plain aggregation, on both sides."""
+    _two_rounds_match_reference(
+        JConfig(engine="sequential", **_KW),
+        TConfig(engine="sequential", device="cpu", **_KW))
+
+
+def test_compression_needs_the_fused_engine():
+    with pytest.raises(ValueError, match="fused"):
+        TConfig(device="cpu", engine="sequential",
+                compression=CompressionConfig(codec="int8"))
+    assert TConfig(device="cpu", engine="sequential").engine == "sequential"
+    for field in ("engine", "assigner"):
+        with pytest.raises(ValueError, match=f"unknown {field}"):
+            TConfig(device="cpu", **{field: "no-such"})
+
+
 def test_framework_runs_own_clustering_on_cpu():
     """No injection: the port draws its own init, crops and seeding."""
     cfg = TConfig(H=H, K=K, alloc_steps=5, max_iters=1, device="cpu",
@@ -118,9 +145,8 @@ def test_config_needs_cpu_asked_for():
     assert TConfig(device="cpu").device == "cpu"
 
 
-@pytest.mark.parametrize("field,value", [("engine", "sequential"),
-                                         ("codec", "int8"),
-                                         ("assigner", "hfel")])
+@pytest.mark.parametrize("field,value", [("assigner", "hfel"),
+                                         ("assigner", "drl")])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TConfig(device="cpu", **{field: value})

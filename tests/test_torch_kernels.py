@@ -6,16 +6,26 @@ Pallas kernels in interpret mode, on the same numpy inputs. Tolerance:
 f32 products summed in another order (BLAS vs XLA vs the Pallas block
 loop), so a few ulps of the sum: rtol/atol 1e-5 for aggregation, and for
 distances atol 1e-5 of the largest distance (the ‖x‖²+‖c‖²−2x·c form
-cancels). The CUDA kernels themselves are checked against their plain
-versions in ``tests/test_torch_cuda.py``, which needs a card.
+cancels). The decode-aggregate (K4) plain version decodes exactly as
+``ref.py`` does and differs from it only by the matmul's summation
+order: rtol/atol 1e-5 for every wire dtype. Against the Pallas kernel in
+interpret mode K4 is held to the reference's own tolerance
+(``tests/test_kernels.py``: 1e-4, and 0.05 for a bf16 operand). The CUDA
+kernels themselves are checked against their plain versions in
+``tests/test_torch_cuda.py``, which needs a card.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.hier_agg.hier_agg import masked_aggregate_batched_pallas
-from repro.kernels.hier_agg.ref import masked_aggregate_ref
+from repro.kernels.hier_agg.hier_agg import (
+    masked_aggregate_batched_pallas, masked_decode_aggregate_batched_pallas,
+    weighted_aggregate_batched_pallas)
+from repro.kernels.hier_agg.ops import aggregate_pytrees as j_aggregate_pytrees
+from repro.kernels.hier_agg.ref import (masked_aggregate_ref,
+                                        masked_decode_aggregate_ref,
+                                        weighted_aggregate_ref)
 from repro.kernels.kmeans_dist.kmeans_dist import pairwise_sq_dists_pallas
 from repro.kernels.kmeans_dist.ref import pairwise_sq_dists_ref
 from repro_torch.kernels.hier_agg import ops as ha
@@ -75,6 +85,111 @@ def test_masked_aggregate_unbatched_is_lane_zero():
     assert torch.equal(one, lanes[0])
 
 
+def _wire_q(rng, S, H, P, dtype):
+    """Wire-format rows as each codec emits them: int8 levels, bf16
+    deltas, or dense-masked f32 (top-k). Returns (numpy f32 values, the
+    torch tensor in the wire dtype, the jax array in the wire dtype)."""
+    if dtype == "int8":
+        v = rng.integers(-127, 128, (S, H, P)).astype(np.float32)
+        return (v, torch.from_numpy(v).to(torch.int8),
+                jnp.asarray(v, jnp.int8))
+    v = rng.normal(0, 1, (S, H, P)).astype(np.float32)
+    if dtype == "float32":
+        v[rng.random(v.shape) > 0.05] = 0.0          # top-k keeps ~5%
+        return v, torch.from_numpy(v), jnp.asarray(v)
+    j = jnp.asarray(v, jnp.bfloat16)                 # round once, in jax
+    v = np.array(j.astype(jnp.float32))
+    return v, torch.from_numpy(v).to(torch.bfloat16), j
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("S,M,H,P,empty", [
+    (1, 5, 50, 2260, ()),       # fc2 leaf, edge hop
+    (1, 1, 5, 375, ()),         # cloud hop: one row over M=5 edges
+    (1, 6, 30, 1037, (2, 5)),   # empty edges -> zero rows
+    (3, 10, 9, 33, (0,)),       # S lanes, M > the kernel's 8-row tile
+])
+def test_masked_decode_aggregate_plain_matches_reference(dtype, S, M, H, P,
+                                                         empty):
+    mask, sizes, _ = _agg_inputs(S + M + H + P, S, M, H, 1, empty)
+    rng = np.random.default_rng(S * M + H)
+    scales = rng.uniform(1e-3, 2e-2, (S, H)).astype(np.float32)
+    vals, q_t, q_j = _wire_q(rng, S, H, P, dtype)
+    got = ha.masked_decode_aggregate_batched(
+        torch.from_numpy(mask), torch.from_numpy(sizes),
+        torch.from_numpy(scales), q_t).numpy()
+    assert torch.equal(q_t.float(), torch.from_numpy(vals))
+    ref = np.stack([np.asarray(masked_decode_aggregate_ref(
+        jnp.asarray(mask[s]), jnp.asarray(sizes[s]), jnp.asarray(scales[s]),
+        q_j[s])) for s in range(S)])
+    pallas = np.asarray(masked_decode_aggregate_batched_pallas(
+        jnp.asarray(mask), jnp.asarray(sizes), jnp.asarray(scales), q_j,
+        interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    tol = 0.05 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(got, pallas, rtol=tol, atol=tol)
+    for m in empty:
+        assert np.all(got[:, m] == 0.0)
+
+
+def test_masked_decode_aggregate_unbatched_is_lane_zero():
+    mask, sizes, _ = _agg_inputs(2, 1, 4, 11, 1)
+    rng = np.random.default_rng(2)
+    scales = torch.from_numpy(rng.uniform(0, 1, (1, 11)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-127, 128, (1, 11, 50)).astype(
+        np.int8))
+    one = ha.masked_decode_aggregate(torch.from_numpy(mask[0]),
+                                     torch.from_numpy(sizes[0]), scales[0],
+                                     q[0])
+    lanes = ha.masked_decode_aggregate_batched(
+        torch.from_numpy(mask), torch.from_numpy(sizes), scales, q)
+    assert torch.equal(one, lanes[0])
+
+
+@pytest.mark.parametrize("S,M,H,P", [
+    (1, 5, 50, 2260),           # an edge hop's panel over a CNN leaf
+    (1, 3, 13, 257),            # unaligned M, H, P
+    (3, 10, 9, 33),             # S lanes, M > 8
+])
+def test_weighted_aggregate_plain_matches_reference(S, M, H, P):
+    rng = np.random.default_rng(S + M + H + P)
+    w = rng.uniform(0, 1, (S, M, H)).astype(np.float32)
+    w /= w.sum(2, keepdims=True)
+    deltas = rng.normal(0, 1, (S, H, P)).astype(np.float32)
+    got = ha.weighted_aggregate_batched(torch.from_numpy(w),
+                                        torch.from_numpy(deltas)).numpy()
+    ref = np.stack([np.asarray(weighted_aggregate_ref(
+        jnp.asarray(w[s]), jnp.asarray(deltas[s]))) for s in range(S)])
+    pallas = np.asarray(weighted_aggregate_batched_pallas(
+        jnp.asarray(w), jnp.asarray(deltas), interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    one = ha.weighted_aggregate(torch.from_numpy(w[0]),
+                                torch.from_numpy(deltas[0]))
+    np.testing.assert_array_equal(one.numpy(), got[0])
+
+
+def test_aggregate_pytrees_matches_reference():
+    """(M, H) panel over a dict of (H, ...) leaves -> (M, ...) leaves in
+    the leaf dtype, leaf by leaf as the reference's ``aggregate_pytrees``."""
+    rng = np.random.default_rng(5)
+    M, H = 3, 7
+    w = rng.uniform(0, 1, (M, H)).astype(np.float32)
+    params = {"conv": rng.normal(0, 1, (H, 3, 3, 1, 4)).astype(np.float32),
+              "b": rng.normal(0, 1, (H, 4)).astype(np.float32)}
+    got = ha.aggregate_pytrees(torch.from_numpy(w),
+                               {k: torch.from_numpy(v)
+                                for k, v in params.items()})
+    ref = j_aggregate_pytrees(jnp.asarray(w),
+                              {k: jnp.asarray(v) for k, v in params.items()},
+                              interpret=True)
+    for k in params:
+        assert got[k].shape == (M,) + params[k].shape[1:]
+        assert got[k].dtype == torch.float32
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-5)
+
+
 # --------------------------------------------------------- kmeans_dist
 
 @pytest.mark.parametrize("N,P,K", [
@@ -115,12 +230,33 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ha.masked_aggregate_batched_cuda(torch.zeros(1, 2, 3),
                                          torch.zeros(1, 4),
                                          torch.zeros(1, 3, 5))
+    ones = (torch.ones(1, 2, 3), torch.ones(1, 3), torch.ones(1, 3))
+    for q in (torch.ones(1, 3, 5, dtype=torch.int8),
+              torch.ones(1, 3, 5, dtype=torch.bfloat16), torch.ones(1, 3, 5)):
+        with pytest.raises(ValueError, match="CUDA"):
+            ha.masked_decode_aggregate_batched_cuda(*ones, q)
+    for dtype in (torch.float16, torch.int32, torch.float64):
+        with pytest.raises(ValueError, match="int8, bfloat16 or float32"):
+            ha.masked_decode_aggregate_batched_cuda(
+                *ones, torch.ones(1, 3, 5, dtype=dtype))
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.weighted_aggregate_batched_cuda(torch.ones(1, 2, 3),
+                                           torch.ones(1, 3, 5))
+    with pytest.raises(ValueError, match="shape"):
+        ha.weighted_aggregate_batched_cuda(torch.ones(1, 2, 3),
+                                           torch.ones(1, 4, 5))
 
 
 def test_cpu_dispatch_launches_nothing():
-    before = (ha.masked_aggregate_batched_cuda.launches,
-              kd.pairwise_sq_dists_cuda.launches)
+    counters = (ha.masked_aggregate_batched_cuda,
+                ha.masked_decode_aggregate_batched_cuda,
+                ha.weighted_aggregate_batched_cuda,
+                kd.pairwise_sq_dists_cuda)
+    before = [c.launches for c in counters]
     ha.masked_aggregate(torch.ones(2, 3), torch.ones(3), torch.ones(3, 4))
+    ha.masked_decode_aggregate(torch.ones(2, 3), torch.ones(3),
+                               torch.ones(3),
+                               torch.ones(3, 4, dtype=torch.int8))
+    ha.weighted_aggregate(torch.ones(2, 3), torch.ones(3, 4))
     kd.pairwise_sq_dists(torch.ones(3, 4), torch.ones(2, 4))
-    assert (ha.masked_aggregate_batched_cuda.launches,
-            kd.pairwise_sq_dists_cuda.launches) == before
+    assert [c.launches for c in counters] == before
