@@ -43,6 +43,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device busy time against wall time, and the kernels that took the
    most.
 
+The HFL frameworks are then released, and the dense decoder's serving
+path runs (chatglm3-6b, f32 weights drawn on the card from a seed, bf16
+compute):
+
+6. Flash attention: the kernel against its plain version at the
+   prefill's shape (B=2, S=4096, 32 q heads, 2 KV heads, d=128, bf16)
+   and at edge cases (ragged S, windows, head dims 16/48/80, MHA, f32,
+   a 16 384-token sequence), timed at the prefill's shape against the
+   bound, the plain version and PyTorch's SDPA.
+7. A': two layers at full width in f32: the prefill through the kernel
+   (2 launches) against the plain prefill within LM_F32_TOL of the
+   largest logit, and the serving loop's teacher-forced decode logits
+   against the kernel prefill of the same prompt, within the same.
+8. A: all 28 layers, bf16: the prefill through the kernel (28
+   launches) against the plain prefill (0), by the largest difference
+   relative to the largest logit and by the share of positions whose
+   argmax agrees (limits LM_BF16_REL, LM_BF16_AGREE); both against an
+   f32 plain prefill, printed.
+9. B: the ``serve_lm`` loop on the full model (batch 8, prompt 32, 64
+   greedy tokens; no kernel launch), its tokens in range, its
+   teacher-forced logits against the kernel prefill of the prompt (the
+   same limits as A); prefill and decode seconds and tokens/s. Then one
+   kernel prefill and one decode step under ``torch.profiler``.
+Each phase prints its peak device memory.
+
 The line before the last is a JSON object with one entry per kernel
 (the decode-aggregate kernel once per wire dtype); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -76,6 +101,42 @@ PARAM_TOL = 1e-4        # kernel vs plain-matmul round: max |Δparam|
 # see a flip. A wrong aggregation moves nearly all of them.
 FLIP_ATOL, FLIP_SHARE = 1e-5, 5e-2
 F32_FLOPS = 67e12       # H100/H200 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12     # H100/H200 SXM bf16 tensor-core rate, dense
+# flash attention vs its plain version: f32 to 2e-5 (the reference's own
+# kernel-vs-oracle figure: the kernel scales q before the dot, the plain
+# version divides the scores); bf16: both compute in f32 from the same
+# inputs (the kernel's P enters its tensor-core product as two bf16
+# parts, ~2^-16 apart from f32) and round once, so they differ by at most
+# one bf16 ulp of the value (2^-7 relative), plus 1e-5 for f32 noise on
+# outputs near zero
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
+FA_MAIN = ("prefill", 2, 4096, 32, 2, 128, 0, "bfloat16")
+FA_CASES = (FA_MAIN,
+            ("ragged S", 1, 200, 4, 2, 64, 0, "bfloat16"),
+            ("window 96 G=4", 1, 256, 8, 2, 64, 96, "bfloat16"),
+            ("hd 80 window 50", 1, 128, 2, 1, 80, 50, "bfloat16"),
+            ("window 8 < tile", 1, 200, 4, 2, 64, 8, "bfloat16"),
+            ("hd 16", 2, 64, 8, 2, 16, 0, "bfloat16"),
+            ("hd 48", 2, 64, 4, 2, 48, 0, "bfloat16"),
+            ("MHA G=1", 2, 256, 4, 4, 32, 0, "bfloat16"),
+            ("f32 prefill", 1, 1024, 32, 2, 128, 0, "float32"),
+            ("f32 window 96", 1, 256, 8, 2, 64, 96, "float32"),
+            ("f32 hd 80", 1, 200, 2, 1, 80, 50, "float32"),
+            ("long", 1, 16384, 2, 1, 128, 0, "bfloat16"))
+LM_ARCH, LM_SEED = "chatglm3-6b", 0
+LM_BATCH, LM_SEQ = 2, 4096                      # prefill batch
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 64
+# 2-layer f32 model: kernel vs plain prefill and decode vs prefill within
+# LM_F32_TOL x max|logits| (f32 sums in another order, ~1e-6 relative)
+LM_F32_TOL = 1e-4
+# 28-layer bf16 model, kernel vs plain prefill and decode vs prefill. The
+# plain attention rounds its scores and probabilities to bf16 (as the
+# reference's does), the kernel keeps them in f32; 28 random layers grow
+# that difference. A CPU rehearsal at 28 layers and widths 512-1024 gave
+# 0.085 of max|logits| and 85-88 % argmax agreement (decode vs prefill:
+# 0.055, 89-94 %). A wrong mask, head mapping or scale moves the logits by
+# about max|logits| and leaves ~0 % agreement.
+LM_BF16_REL, LM_BF16_AGREE = 0.25, 0.6
 LEAVES = (375, 10500, 101248, 2260)               # conv1, conv2, fc1, fc2
 AGG_CASES = ([("edge", 1, 5, 50, P, ()) for P in LEAVES]
              + [("cloud", 1, 1, 5, P, ()) for P in LEAVES]
@@ -333,6 +394,260 @@ def run_rounds(torch, fw, rounds, label):
     return recs
 
 
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one (batch, head): the work these
+    inputs need."""
+    q = np.arange(S)
+    hi = q + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S)
+    return int((hi - lo).sum())
+
+
+def time_events(torch, fn, reps: int) -> float:
+    """Eager ms per call of ``fn`` by CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flash_phase(torch, rate):
+    """K5 against its plain version at FA_CASES; times at FA_MAIN."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(1)
+    res = {"err": 0.0}
+    for tag, B, S, Hq, Hkv, d, window, dtype_name in FA_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.randn(B, S, h, d, generator=g, device="cuda")
+                   .to(dtype) for h in (Hq, Hkv, Hkv))
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        ref = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        err = float(diff.max())
+        rtol, atol = FA_TOL[dtype_name]
+        check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+              f"flash_attention {tag} B={B} S={S} Hq={Hq} Hkv={Hkv} d={d} "
+              f"window={window} {dtype_name}: max_abs_err {err}")
+        res["err"] = max(res["err"], err)
+        line = (f"flash_attention {tag:16s} B={B} S={S:5d} Hq={Hq:2d} "
+                f"Hkv={Hkv} d={d:3d} window={window:2d} {dtype_name}: "
+                f"max_abs_err={err:.3e} (rtol {rtol:.3g}, atol {atol:g})")
+        if tag in ("prefill", "long"):
+            t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+            line += f" kernel_ms={t_k:.4f} eager_ms={e_k:.4f}"
+        if tag == "prefill":
+            t_p = time_events(torch, lambda: fa.flash_attention_ref(q, k, v),
+                              2)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_err = float((lib.transpose(1, 2).float()
+                             - ref.float()).abs().max())
+            t_l = time_events(torch, lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+            flops = 4 * d * attention_pairs(S, True, window) * B * Hq
+            nbytes = (2 * B * S * Hq * d + 2 * B * S * Hkv * d) \
+                * q.element_size()
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            by_bytes, by_flops = nbytes / rate, flops / peak
+            res.update(ms=t_k, eager_ms=e_k, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=max(by_bytes, by_flops) * 1e3,
+                       bound_by="bytes" if by_bytes >= by_flops
+                       else "operations")
+            line += (f" plain_ms={t_p:.4f} library_ms={t_l:.4f} (sdpa "
+                     f"max_abs_err vs plain {lib_err:.3e}) bound_ms="
+                     f"{res['bound_ms']:.4f} ({res['bound_by']}: "
+                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB)")
+        print(line)
+        del q, k, v, got, ref, diff
+    return res
+
+
+def logits_gap(a, b):
+    """(max |a - b| / max |b|, share of positions whose argmax agrees)."""
+    a, b = a.float(), b.float()
+    rel = float((a - b).abs().max()) / float(b.abs().max())
+    return rel, float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def timed(torch, fn):
+    """(fn(), host seconds ending in a device synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def peak_gb(torch) -> str:
+    return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+
+
+def lm_phases(torch, rate, zero_counts, read_counts):
+    """Phases 6-9: K5, then chatglm3-6b's prefill and serving paths."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {"kernel": flash_phase(torch, rate)}
+    print(f"flash_attention phase: peak memory {peak_gb(torch)}")
+    full = get_config(LM_ARCH)
+    V = full.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+
+    def prefill(cfg, params, tokens, impl, expect):
+        zero_counts()
+        logits, secs = timed(torch, lambda: make_prefill_step(cfg, impl)(
+            params, {"tokens": tokens}))
+        read_counts(f"{cfg.name} n_layers={cfg.n_layers} {cfg.dtype} "
+                    f"prefill impl={impl}", {"flash_attention": expect})
+        check(bool(torch.isfinite(logits).all()),
+              f"{impl} prefill logits not finite")
+        print(f"  prefill impl={impl} B={tokens.shape[0]} "
+              f"S={tokens.shape[1]}: {secs:.4f} s, peak memory "
+              f"{peak_gb(torch)}")
+        return logits
+
+    def serve(cfg, params, prompt, gen):
+        zero_counts()
+        res = serve_lm.serve(params, cfg, prompt, gen,
+                             keep_prompt_logits=True)
+        read_counts(f"{cfg.name} n_layers={cfg.n_layers} serve_lm loop", {})
+        step_ms = res["decode_s"] / gen * 1e3
+        print(f"  serve_lm B={prompt.shape[0]} prompt={prompt.shape[1]} "
+              f"gen={gen}: prefill {res['prefill_s']:.4f} s, decode "
+              f"{res['decode_s']:.4f} s ({step_ms:.2f} ms a step), "
+              f"{res['tok_s']:.1f} tok/s, peak memory {peak_gb(torch)}")
+        toks = res["tokens"]
+        check(toks.shape == (prompt.shape[0], gen)
+              and int(toks.min()) >= 0 and int(toks.max()) < V,
+              "serve_lm tokens out of range")
+        check(bool(torch.isfinite(res["prompt_logits"]).all()),
+              "serve_lm prompt logits not finite")
+        return res
+
+    # ---- A': two layers at full width, f32 (the tight oracle)
+    torch.cuda.reset_peak_memory_stats()
+    cfg2 = dataclasses.replace(full, n_layers=2, dtype="float32")
+    params, secs = timed(torch, lambda: T.init(g, cfg2, device="cuda"))
+    print(f"A' {cfg2.name} n_layers=2 f32: init {secs:.3f} s")
+    tokens = torch.randint(0, V, (LM_BATCH, LM_SEQ), generator=g,
+                           device="cuda")
+    lk = prefill(cfg2, params, tokens, "kernel", cfg2.n_layers)
+    lp = prefill(cfg2, params, tokens, "plain", 0)
+    rel, agree = logits_gap(lk, lp)
+    print(f"A' kernel vs plain prefill: max|diff|/max|logits| {rel:.3e} "
+          f"(limit {LM_F32_TOL:g}), argmax agreement {agree:.4f}, "
+          f"max|logits| {float(lp.abs().max()):.3f}")
+    check(rel <= LM_F32_TOL, f"A': kernel vs plain prefill {rel}")
+    del lk, lp
+    prompt = torch.randint(0, V, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                           device="cuda")
+    res = serve(cfg2, params, prompt, 8)
+    pre = prefill(cfg2, params, prompt, "kernel", cfg2.n_layers)
+    rel, agree = logits_gap(res["prompt_logits"], pre)
+    print(f"A' decode vs kernel prefill over the prompt: max|diff|/"
+          f"max|logits| {rel:.3e} (limit {LM_F32_TOL:g}), argmax "
+          f"agreement {agree:.4f}")
+    check(rel <= LM_F32_TOL, f"A': decode vs prefill {rel}")
+    del params, res, pre
+    torch.cuda.empty_cache()
+
+    # ---- A: all 28 layers, bf16
+    torch.cuda.reset_peak_memory_stats()
+    params, secs = timed(torch, lambda: T.init(g, full, device="cuda"))
+    n_params = sum(x.numel() for x in _leaves(params))
+    check(n_params == full.param_count(), f"{n_params} parameters")
+    print(f"A {full.name} n_layers={full.n_layers} {full.dtype}: "
+          f"{n_params} f32 parameters drawn on the card in {secs:.3f} s, "
+          f"peak memory {peak_gb(torch)}")
+    tokens = torch.randint(0, V, (LM_BATCH, LM_SEQ), generator=g,
+                           device="cuda")
+    prefill(full, params, tokens, "kernel", full.n_layers)   # warm-up
+    lk = prefill(full, params, tokens, "kernel", full.n_layers)
+    out["launches"] = full.n_layers
+    lp = prefill(full, params, tokens, "plain", 0)
+    lp = prefill(full, params, tokens, "plain", 0)
+    rel, agree = logits_gap(lk, lp)
+    print(f"A kernel vs plain prefill: max|diff|/max|logits| {rel:.3e} "
+          f"(limit {LM_BF16_REL:g}), argmax agreement {agree:.4f} (limit "
+          f"{LM_BF16_AGREE:g}), max|logits| {float(lp.abs().max()):.3f}")
+    check(rel <= LM_BF16_REL and agree >= LM_BF16_AGREE,
+          f"A: kernel vs plain prefill {rel}, {agree}")
+    f32 = prefill(dataclasses.replace(full, dtype="float32"), params,
+                  tokens, "plain", 0)
+    for impl, lg in (("kernel", lk), ("plain", lp)):
+        rel, agree = logits_gap(lg, f32)
+        print(f"A bf16 {impl} prefill vs f32 plain prefill: max|diff|/"
+              f"max|logits| {rel:.3e}, argmax agreement {agree:.4f}")
+    del lk, lp, f32
+    torch.cuda.empty_cache()
+
+    # ---- B: the serving loop on the full model
+    torch.cuda.reset_peak_memory_stats()
+    prompt = torch.randint(0, V, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                           device="cuda")
+    res = serve(full, params, prompt, SERVE_GEN)
+    pre = prefill(full, params, prompt, "kernel", full.n_layers)
+    rel, agree = logits_gap(res["prompt_logits"], pre)
+    print(f"B decode vs kernel prefill over the prompt: max|diff|/"
+          f"max|logits| {rel:.3e} (limit {LM_BF16_REL:g}), argmax "
+          f"agreement {agree:.4f} (limit {LM_BF16_AGREE:g})")
+    check(rel <= LM_BF16_REL and agree >= LM_BF16_AGREE,
+          f"B: decode vs prefill {rel}, {agree}")
+    del res, pre
+
+    # ---- where the time goes: one kernel prefill, one decode step
+    cache = T.init_cache(full, SERVE_BATCH, SERVE_PROMPT, device="cuda")
+    step = make_serve_step(full)
+    zero_counts()
+    profiled(torch, "A kernel prefill B=2 S=4096", lambda: make_prefill_step(
+        full, "kernel")(params, {"tokens": tokens}))
+    profiled(torch, "B decode step B=8", lambda: step(
+        params, cache, prompt[:, :1], 0))
+    read_counts("profiled prefill and decode step (each run twice)",
+                {"flash_attention": 2 * full.n_layers})
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiled(torch, label, fn):
+    """Run ``fn`` once warm under torch.profiler; print wall, device busy
+    time and the kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(torch, fn)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profiled {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
+          f"({busy / wall:.1%}); top device time: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -349,6 +664,7 @@ def main() -> int:
     from repro_torch.core.framework import FrameworkConfig, HFLFramework
     from repro_torch.data import make_dataset, partition_noniid
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.hier_agg import ops as ha
     from repro_torch.kernels.kmeans_dist import ops as kd
 
@@ -356,7 +672,8 @@ def main() -> int:
                 "pairwise_sq_dists": kd.pairwise_sq_dists_cuda,
                 "masked_decode_aggregate":
                     ha.masked_decode_aggregate_batched_cuda,
-                "weighted_aggregate": ha.weighted_aggregate_batched_cuda}
+                "weighted_aggregate": ha.weighted_aggregate_batched_cuda,
+                "flash_attention": fa.flash_attention_cuda}
 
     def zero_counts():
         for fn in counters.values():
@@ -583,6 +900,13 @@ def main() -> int:
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
               f"x{e.count}" for e in top))
 
+    # ------------------------------------- release the HFL frameworks
+    del fw, fw8, X, y, Xt, yt, fed, pop, labels
+    torch.cuda.empty_cache()
+    lm = lm_phases(torch, rate, zero_counts, read_counts)
+    kres["flash_attention"] = lm.pop("kernel")
+    launches["flash_attention"] = lm["launches"]
+
     # ----------------------------------------------------------- result
     src = "src/repro_torch/csrc/hier_agg.cu"
     hier = "src/repro/kernels/hier_agg/hier_agg.py"
@@ -603,6 +927,10 @@ def main() -> int:
         routes[f"masked_decode_aggregate_{short}"] = (
             f"masked_decode_aggregate[{dtype_name}]", src, f"{hier}:180",
             f"{edge_work}, q {dtype_name}")
+    routes["flash_attention"] = (
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:86",
+        "one launch, B=2, S=4096, Hq=32, Hkv=2, d=128, causal, bf16")
     kernels = []
     for key, (kname, source, replaces, work) in routes.items():
         r = kres[key]

@@ -8,32 +8,49 @@ packages unchanged through numpy (``convert``).
 
 Module map (port -> reference):
 
-=======================================  =================================================
-``repro_torch.utils``                    ``repro.utils`` (tree_bytes, tree_flatten_to_vector,
-                                         dbm_to_watt, db_to_linear)
-``repro_torch.convert``                  (new) numpy <-> port parameter dicts
-``repro_torch.data.synthetic``           ``repro.data.synthetic`` (make_dataset; numpy copy)
-``repro_torch.data.partition``           ``repro.data.partition`` (numpy copy)
-``repro_torch.core.cost_model``          ``repro.core.cost_model`` (eqs. 4-14, no traces)
-``repro_torch.models.layers``            ``repro.models.layers`` (he_normal)
-``repro_torch.models.cnn``               ``repro.models.cnn``
-``repro_torch.models.spec``              ``repro.models.spec`` (cnn_spec)
-``repro_torch.configs.registry``         ``repro.configs.registry`` (get_hfl_spec, hfl-cnn)
-``repro_torch.core.local_train``         ``repro.core.local_train``
-``repro_torch.core.compression``         ``repro.core.compression`` (codecs, error feedback)
-``repro_torch.core.hfl``                 ``repro.core.hfl`` (Algorithm 1, with codecs)
-``repro_torch.core.resource``            ``repro.core.resource`` (problem 27)
-``repro_torch.core.clustering``          ``repro.core.clustering``
-``repro_torch.core.scheduling``          ``repro.core.scheduling`` (device_clustering;
-                                         vectorized schedulers, numpy copies)
-``repro_torch.core.assignment.geo``      ``repro.core.assignment.geo`` (GeoAssigner)
-``repro_torch.core.framework``           ``repro.core.framework`` (fused and sequential
-                                         engines, codecs; geo assignment)
-``repro_torch.kernels.hier_agg.ops``     ``repro.kernels.hier_agg`` masked_aggregate,
-                                         weighted_aggregate, masked_decode_aggregate
-``repro_torch.kernels.kmeans_dist.ops``  ``repro.kernels.kmeans_dist`` pairwise_sq_dists
-``repro_torch.kernels.build``            (new) nvcc build + ctypes loading
-=======================================  =================================================
+=============================================  =================================================
+``repro_torch.utils``                          ``repro.utils`` (tree_bytes, tree_flatten_to_vector,
+                                               dbm_to_watt, db_to_linear)
+``repro_torch.convert``                        (new) numpy <-> port parameter trees
+``repro_torch.data.synthetic``                 ``repro.data.synthetic`` (make_dataset; numpy copy)
+``repro_torch.data.partition``                 ``repro.data.partition`` (numpy copy)
+``repro_torch.core.cost_model``                ``repro.core.cost_model`` (eqs. 4-14, no traces)
+``repro_torch.models.layers``                  ``repro.models.layers`` (he_normal, dense/embed
+                                               init, rmsnorm, RoPE, SwiGLU)
+``repro_torch.models.cnn``                     ``repro.models.cnn``
+``repro_torch.models.spec``                    ``repro.models.spec`` (cnn_spec)
+``repro_torch.configs.base``                   ``repro.configs.base`` (ModelConfig, InputShape)
+``repro_torch.configs.<arch>``                 ``repro.configs.<arch>`` for chatglm3_6b,
+                                               mistral_nemo_12b, internvl2_26b,
+                                               musicgen_medium, llama3_405b,
+                                               mistral_large_123b
+``repro_torch.configs.registry``               ``repro.configs.registry`` (get_config,
+                                               get_smoke_config, variant_for_shape,
+                                               get_hfl_spec: hfl-cnn)
+``repro_torch.models.attention``               ``repro.models.attention`` (GQA, RoPE, SWA,
+                                               KV cache; impl "plain"/"kernel")
+``repro_torch.models.transformer``             ``repro.models.transformer`` (dense, vlm,
+                                               audio; forward, loss_fn, decode)
+``repro_torch.launch.steps``                   ``repro.launch.steps`` (make_serve_step,
+                                               make_prefill_step)
+``repro_torch.launch.serve_lm``                ``repro.launch.serve_lm`` (the LM serving CLI)
+``repro_torch.core.local_train``               ``repro.core.local_train``
+``repro_torch.core.compression``               ``repro.core.compression`` (codecs, error feedback)
+``repro_torch.core.hfl``                       ``repro.core.hfl`` (Algorithm 1, with codecs)
+``repro_torch.core.resource``                  ``repro.core.resource`` (problem 27)
+``repro_torch.core.clustering``                ``repro.core.clustering``
+``repro_torch.core.scheduling``                ``repro.core.scheduling`` (device_clustering;
+                                               vectorized schedulers, numpy copies)
+``repro_torch.core.assignment.geo``            ``repro.core.assignment.geo`` (GeoAssigner)
+``repro_torch.core.framework``                 ``repro.core.framework`` (fused and sequential
+                                               engines, codecs; geo assignment)
+``repro_torch.kernels.hier_agg.ops``           ``repro.kernels.hier_agg`` masked_aggregate,
+                                               weighted_aggregate, masked_decode_aggregate
+``repro_torch.kernels.kmeans_dist.ops``        ``repro.kernels.kmeans_dist`` pairwise_sq_dists
+``repro_torch.kernels.flash_attention.ops``    ``repro.kernels.flash_attention``
+                                               flash_attention (and ``ref.py``)
+``repro_torch.kernels.build``                  (new) nvcc build + ctypes loading
+=============================================  =================================================
 
 CUDA kernels (``csrc/``, built for ``sm_90a`` at first use) and the
 Pallas functions they replace:
@@ -44,4 +61,6 @@ Pallas functions they replace:
   ``masked_decode_aggregate_batched_pallas``
 * ``csrc/kmeans_dist.cu`` ->
   ``repro/kernels/kmeans_dist/kmeans_dist.py:pairwise_sq_dists_pallas``
+* ``csrc/flash_attention.cu`` ->
+  ``repro/kernels/flash_attention/flash_attention.py:flash_attention_pallas``
 """

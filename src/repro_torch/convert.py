@@ -1,27 +1,34 @@
 """Carrying parameters between ``repro``'s pytrees and the port.
 
 The port keeps ``repro``'s layouts (HWIO conv weights, the same dict
-keys), so a conversion is a per-leaf copy through numpy: nothing is
-transposed or renamed, and a round trip is exact.
+keys, the transformer's list of stacked super-blocks), so a conversion
+is a per-leaf copy through numpy: nothing is transposed or renamed, and
+a round trip is exact. Trees are dicts and lists nested to any depth.
 """
 from __future__ import annotations
-
-from typing import Mapping
 
 import numpy as np
 import torch
 
-from repro_torch.utils import Params, resolve_device
+from repro_torch.utils import resolve_device
 
 
-def params_from_numpy(tree: Mapping, device="cuda") -> Params:
-    """A dict of array-likes (e.g. ``repro`` params passed through
-    ``np.asarray``) -> a dict of f32 tensors on ``device``."""
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A tree of array-likes (e.g. ``repro`` params passed through
+    ``np.asarray``) -> the same tree of f32 tensors on ``device``."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-            for k, v in tree.items()}
+    return _map(lambda v: torch.from_numpy(np.array(v, dtype=np.float32))
+                .to(dev), tree)
 
 
-def params_to_numpy(params: Params) -> dict:
-    """The port's parameter dict -> a dict of numpy arrays."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def params_to_numpy(tree):
+    """A tree of the port's tensors -> the same tree of numpy arrays."""
+    return _map(lambda v: v.detach().cpu().numpy(), tree)

@@ -1,0 +1,126 @@
+"""Grouped-query flash attention (causal, sliding window), forward only:
+plain version, CUDA kernel wrapper and dispatcher.
+
+Replaces ``repro.kernels.flash_attention``'s ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention/flash_attention.py``, body
+``_kernel``) and its oracle ``ref.flash_attention_ref``. q is
+(B, S, Hq, d), k and v (B, S, Hkv, d) with Hq % Hkv == 0; q head h reads
+KV head h // (Hq // Hkv). Key j is kept for query i when j <= i (causal),
+j > i - window (window > 0) and j < S; the softmax is f32 and the output
+has q's dtype. The kernel is ``csrc/flash_attention.cu`` (see its header
+for what bounds it on the card and how the design answers that): bf16
+runs on the tensor cores, f32 on f32 FMAs, both with f32 softmax
+statistics. It reads the layout through its strides, so the reference's
+transposes and its padding of d and S exist nowhere here.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128
+_ENTRIES = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain version: the materialised softmax in f32 (the CPU path and
+    the kernel's oracle). Scores are divided by sqrt(d); masked pairs
+    take the finite ``NEG_INF``."""
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, S, Hkv, G, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(d)
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= ki <= qi
+    if window > 0:
+        ok &= ki > qi - window
+    scores = scores.masked_fill_(~ok, NEG_INF).softmax(dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", scores, v.float())
+    return out.reshape(B, S, Hq, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    fn = getattr(build.library("flash_attention"), _ENTRIES[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. Takes q (B, S, Hq, d)
+    and k, v (B, S, Hkv, d) on one CUDA device, all f32 or all bf16, unit
+    stride in d, Hq % Hkv == 0 and d <= 128; raises on anything else and
+    on a refused launch. Returns a contiguous (B, S, Hq, d) tensor."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B, S, Hq, d) and k, v (B, S, Hkv, d), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside the kernel's 1..."
+                         f"{MAX_HEAD_DIM}")
+    if q.dtype not in _ENTRIES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device, got "
+                             f"{t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs unit stride in d, got "
+                             f"{t.stride()}")
+    if B > 65535 or Hq > 65535 or window < 0:
+        raise ValueError(f"B={B}, Hq={Hq}, window={window} beyond the "
+                         "kernel's grid")
+    out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                        for i in range(3)))
+    with torch.cuda.device(q.device):
+        err = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), B, S, Hq, Hkv, d,
+                              ctypes.addressof(strides), int(bool(causal)),
+                              int(window),
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B, S, Hq, d) attention output in q's dtype. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, window)
+    return flash_attention_cuda(q, k, v, causal, window)

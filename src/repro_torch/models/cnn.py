@@ -42,7 +42,7 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
 
 def cnn_init(generator: torch.Generator, image_hw: Tuple[int, int],
              channels: int, n_classes: int = 10, hidden: Optional[int] = None,
-             device="cpu") -> Params:
+             device="cuda") -> Params:
     """hidden=None picks the paper-size width (226 for 28x28x1, 294 for
     32x32x3)."""
     H, W = image_hw
@@ -70,7 +70,7 @@ def cnn_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mini_init(generator: torch.Generator, n_classes: int = 10,
-              channels_out: int = 10, device="cpu") -> Params:
+              channels_out: int = 10, device="cuda") -> Params:
     """Mini model ξ on a 1x10x10 crop: 2x2 conv -> 2x2 pool -> linear."""
     flat = 4 * 4 * channels_out  # (10-1)//2 = 4 after VALID conv + pool
     return {

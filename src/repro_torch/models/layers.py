@@ -1,17 +1,105 @@
-"""Core layer primitives (functional: params are plain dicts of tensors)."""
+"""Core layer primitives (functional: params are plain dicts of tensors).
+
+Port of ``repro.models.layers``: He/Kaiming and embedding inits,
+RMSNorm, split-half RoPE and the SwiGLU MLP. ``causal_conv1d`` comes
+with Mamba2 (ROADMAP Queue 1 item 8).
+"""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from repro_torch.utils import Params, resolve_device
+
 
 def he_normal(generator: torch.Generator, shape, fan_in=None,
-              device="cpu", dtype=torch.float32) -> torch.Tensor:
+              device="cuda", dtype=torch.float32) -> torch.Tensor:
     """He/Kaiming init [41]. Drawn on the CPU from ``generator`` and then
-    moved, so a seed gives the same weights on every device."""
+    moved to ``device`` (``"cpu"`` only when asked), so a seed gives the
+    same weights on every device."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = math.sqrt(2.0 / fan_in)
     w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
-    return w.to(device=device, dtype=dtype)
+    return w.to(device=resolve_device(device), dtype=dtype)
+
+
+def _normal(generator: torch.Generator, shape, std: float, device,
+            dtype) -> torch.Tensor:
+    """N(0, std²) drawn where ``generator`` lives (on the card for a CUDA
+    generator, so full-width weights never pass through host memory),
+    then moved to ``device``."""
+    w = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32).mul_(std)
+    return w.to(device=resolve_device(device), dtype=dtype)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               device="cuda", dtype=torch.float32, stack=()) -> torch.Tensor:
+    """He-normal (d_in, d_out) weight; ``stack`` prepends a layer axis."""
+    return _normal(generator, (*stack, d_in, d_out), math.sqrt(2.0 / d_in),
+                   device, dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d_model: int,
+               device="cuda", dtype=torch.float32) -> torch.Tensor:
+    return _normal(generator, (vocab, d_model), 0.02, device, dtype)
+
+
+# ---------------------------------------------------------------- RMSNorm
+
+def rmsnorm_init(d: int, device="cuda", stack=()) -> Params:
+    return {"scale": torch.ones((*stack, d), dtype=torch.float32,
+                                device=resolve_device(device))}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """RMS norm computed in f32, cast back to x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["scale"]).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions (...,) -> cos, sin of shape (..., head_dim // 2), in f32
+    (positions are cast to f32 first, as the reference does)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv = 1.0 / torch.pow(theta, exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Split-half (not interleaved) rotation in f32. x: (B, S, H, hd);
+    cos/sin: (B, S, hd//2) or (S, hd//2)."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    if cos.dim() == 2:               # (S, hd//2) -> broadcast over batch
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                            # (B, S, hd//2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- SwiGLU
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+             device="cuda", dtype=torch.float32, stack=()) -> Params:
+    return {
+        "w_gate": dense_init(generator, d_model, d_ff, device, dtype, stack),
+        "w_up": dense_init(generator, d_model, d_ff, device, dtype, stack),
+        "w_down": dense_init(generator, d_ff, d_model, device, dtype, stack),
+    }
+
+
+def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    g = torch.nn.functional.silu(x @ params["w_gate"])
+    u = x @ params["w_up"]
+    return (g * u) @ params["w_down"]

@@ -1,0 +1,212 @@
+"""Decoder-only model over one ``ModelConfig`` (port of
+``repro.models.transformer`` for the attention-only families).
+
+* Parameters keep the reference's tree: ``blocks`` is a list of
+  super-block dicts whose leaves carry a leading ``n_layers / sb`` axis,
+  so weights cross between the packages unchanged (``convert``). A
+  Python loop over that axis takes the place of ``lax.scan``; remat does
+  not apply to a forward.
+* Mixed precision: parameters live in f32 and are cast to
+  ``cfg.compute_dtype`` at each use; RMSNorm and RoPE run in f32.
+* ``vlm`` prepends ``n_prefix_embeds`` dense embeddings (stripped again
+  before the head); ``audio`` embeds K codebooks additively (codebook k
+  uses embedding rows [kV, (k+1)V)) and predicts K heads.
+* MoE and SSM layers (moe, ssm, hybrid families) raise
+  ``NotImplementedError``: they are ROADMAP Queue 1 item 8.
+
+API:
+  init(generator, cfg, device)             -> params
+  forward(params, batch, cfg, impl=)       -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, impl=)       -> (scalar, metrics)
+  init_cache(cfg, batch, max_len, device)  -> decode cache
+  decode(params, tokens, cache, pos, cfg)  -> (logits, cache)
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.utils import resolve_device
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what} layers are not ported to repro_torch yet; see ROADMAP "
+        "Queue 1 item 8")
+
+
+def super_block(cfg: ModelConfig) -> int:
+    """Layers per super-block (distinct layer templates); raises for the
+    layer kinds the port does not have yet."""
+    p = cfg.hybrid_period if cfg.hybrid_period > 0 else 1
+    e = cfg.moe.every if cfg.is_moe else 1
+    sb = math.lcm(p, e)
+    if cfg.n_layers % sb:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
+                         f"multiple of the super-block {sb}")
+    for j in range(sb):
+        if cfg.layer_kind(j) != "attn":
+            raise _unported("SSM (Mamba2)")
+        if cfg.mlp_kind(j) == "moe":
+            raise _unported("MoE")
+    return sb
+
+
+def _at(tree, b: int):
+    """Layer b of a stacked parameter (or cache) tree: views, no copies."""
+    if isinstance(tree, dict):
+        return {k: _at(v, b) for k, v in tree.items()}
+    return tree[b]
+
+
+# ------------------------------------------------------------------ init
+
+def _layer_init(generator, cfg: ModelConfig, idx: int, nb: int, device,
+                dtype) -> Dict[str, Any]:
+    p: Dict[str, Any] = {
+        "norm1": rmsnorm_init(cfg.d_model, device, (nb,)),
+        "mix": attn.attn_init(generator, cfg, device, dtype, (nb,))}
+    if cfg.mlp_kind(idx) != "none":
+        p["norm2"] = rmsnorm_init(cfg.d_model, device, (nb,))
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, device, dtype,
+                            (nb,))
+    return p
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, device="cuda",
+         dtype=torch.float32) -> Dict[str, Any]:
+    """Random parameters of the reference's tree. Values are drawn where
+    ``generator`` lives (a CUDA generator draws on the card) and then
+    moved to ``device``; ``jax.random`` draws cannot be matched, so
+    parity tests carry the reference's weights across instead."""
+    device = resolve_device(device)
+    sb = super_block(cfg)
+    nb = cfg.n_layers // sb
+    rows = cfg.vocab_size * max(1, cfg.n_codebooks)
+    params: Dict[str, Any] = {
+        "embed": embed_init(generator, rows, cfg.d_model, device, dtype),
+        "final_norm": rmsnorm_init(cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, cfg.d_model, rows, device,
+                                       dtype)
+    params["blocks"] = [_layer_init(generator, cfg, j, nb, device, dtype)
+                        for j in range(sb)]
+    return params
+
+
+# ----------------------------------------------------------------- embed
+
+def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """tokens (B, S), or (B, S, K) for audio -> (B, S, D) in the compute
+    dtype."""
+    emb = params["embed"]
+    if cfg.family == "audio" and cfg.n_codebooks > 1:
+        offs = torch.arange(cfg.n_codebooks, device=tokens.device) \
+            * cfg.vocab_size
+        x = emb[tokens.long() + offs].sum(dim=2)
+    else:
+        x = emb[tokens.long()]
+    return x.to(cfg.compute_dtype)
+
+
+def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ w.to(x.dtype)
+    if cfg.family == "audio" and cfg.n_codebooks > 1:
+        B, S, _ = logits.shape
+        return logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_size)
+    return logits
+
+
+# --------------------------------------------------------------- forward
+
+def _mlp_sublayer(p, x: torch.Tensor, cfg: ModelConfig, idx: int
+                  ) -> torch.Tensor:
+    if cfg.mlp_kind(idx) == "none":
+        return x
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply({k: w.to(h.dtype) for k, w in p["mlp"].items()}, h)
+
+
+def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, idx: int, impl: str
+                 ) -> torch.Tensor:
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + attn.attn_forward(p["mix"], h, cfg, impl=impl)
+    return _mlp_sublayer(p, x, cfg, idx)
+
+
+def backbone(params, x: torch.Tensor, cfg: ModelConfig, *,
+             impl: str = "plain") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) embedded input -> (hidden, total aux loss). The aux
+    loss is zero: only MoE layers add to it, and they are not ported."""
+    sb = super_block(cfg)
+    for b in range(cfg.n_layers // sb):
+        for j in range(sb):
+            x = _apply_layer(_at(params["blocks"][j], b), x, cfg, j, impl)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            impl: str = "plain") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train/prefill forward. batch: tokens (+ prefix_embeds for vlm).
+    Returns (logits over the token positions, aux loss)."""
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    n_prefix = 0
+    if cfg.n_prefix_embeds > 0 and "prefix_embeds" in batch:
+        pre = batch["prefix_embeds"].to(x.dtype)
+        n_prefix = pre.shape[1]
+        x = torch.cat([pre, x], dim=1)
+    x, aux = backbone(params, x, cfg, impl=impl)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if n_prefix > 0:
+        x = x[:, n_prefix:]
+    return _lm_head(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, impl: str = "plain"):
+    """Mean next-token NLL over ``batch["labels"]`` (forward only: the
+    gradients come with the training slice)."""
+    logits, aux = forward(params, batch, cfg, impl=impl)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = (lse - gold).mean()
+    return nll, {"nll": nll, "aux": aux}
+
+
+# ---------------------------------------------------------------- decode
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Per-super-block-position KV caches stacked over the blocks (the
+    reference's layout)."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
+    sb = super_block(cfg)
+    nb = cfg.n_layers // sb
+    return [attn.init_kv_cache(cfg, batch, max_len, dtype, device, (nb,))
+            for _ in range(sb)]
+
+
+def decode(params, tokens: torch.Tensor, cache, pos: int, cfg: ModelConfig):
+    """One decode step. tokens (B, 1) or (B, 1, K); pos: the position of
+    these tokens (int). The cache is updated in place and returned."""
+    x = _embed_tokens(params, tokens, cfg)
+    sb = super_block(cfg)
+    for b in range(cfg.n_layers // sb):
+        for j in range(sb):
+            p = _at(params["blocks"][j], b)
+            hn = rmsnorm(p["norm1"], x, cfg.norm_eps)
+            hn, _ = attn.attn_decode(p["mix"], hn, _at(cache[j], b), pos,
+                                     cfg)
+            x = _mlp_sublayer(p, x + hn, cfg, j)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _lm_head(params, x, cfg), cache

@@ -107,7 +107,8 @@ def test_run_device_clustering_with_injected_crops():
     Xp, yp, mp = pad_device_data(fed, device="cpu")
     crop = np.asarray(_cnn_mini_preprocess(jnp.asarray(Xp.numpy()),
                                            jax.random.PRNGKey(1)))
-    mini = params_to_numpy(tcnn.mini_init(torch.Generator().manual_seed(2)))
+    mini = params_to_numpy(tcnn.mini_init(torch.Generator().manual_seed(2),
+                                          device="cpu"))
     key = jax.random.PRNGKey(3)
     K, L, lr = 3, 5, 0.01
     yj, mj = jnp.asarray(yp.numpy().astype(np.int32)), jnp.asarray(mp.numpy())

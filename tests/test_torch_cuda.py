@@ -10,13 +10,24 @@ cuBLAS, so rtol/atol 1e-5 (distances: atol 1e-5 of the largest). The
 decode-aggregate kernel folds the scale into its panel, ``(w·sc)·q``,
 where the plain version computes ``w·(sc·q)``; int8 and bf16 widen to
 f32 exactly, so the same 1e-5 holds for every wire dtype.
+
+Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
+before the dot, the plain version divides the scores: the reference's
+own figure). bf16: both sides compute in f32 from the same bf16 inputs
+(the kernel's tensor-core P.V takes P as two bf16 parts, ~2^-16 apart
+from f32) and round the output once, so they differ by at most one
+bf16 ulp of the value, 2^-7 relative, plus 1e-5 absolute for f32 noise
+on outputs near zero.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.hier_agg import ops as ha
 from repro_torch.kernels.kmeans_dist import ops as kd
+from repro_torch.models import attention as attn
 
 
 @pytest.fixture
@@ -140,3 +151,92 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         ha.weighted_aggregate_batched_cuda(torch.ones(1, 2, 3, device=cuda),
                                            torch.ones(1, 4, 5, device=cuda))
+
+
+FA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+
+
+def _qkv(B, S, Hq, Hkv, d, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(B, S, h, d, generator=g).to(device, dtype)
+                 for h in (Hq, Hkv, Hkv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,window,causal", [
+    (2, 4096, 32, 2, 128, 0, True),    # chatglm3-6b prefill
+    (1, 200, 4, 2, 64, 0, True),       # S not a multiple of a tile
+    (1, 256, 8, 2, 64, 96, True),      # window 96, G = 4
+    (1, 128, 2, 1, 80, 50, True),      # head dim 80, window 50
+    (1, 200, 4, 2, 64, 8, True),       # window smaller than a key tile
+    (2, 64, 8, 2, 16, 0, True),        # smoke widths: head dim 16
+    (2, 64, 4, 2, 48, 0, True),        # and 48
+    (2, 256, 4, 4, 32, 0, True),       # G = 1 (MHA)
+    (1, 200, 4, 2, 64, 0, False),      # non-causal, ragged S
+    (1, 16384, 2, 1, 128, 0, True),    # long sequence
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, Hq, Hkv, d,
+                                              window, causal):
+    q, k, v = _qkv(B, S, Hq, Hkv, d, dtype, cuda, seed=S + d)
+    n0 = fa.flash_attention_cuda.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), ref.float(), **FA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_inputs(cuda):
+    """Slices of wider (B, S, H, 2d) tensors: the kernel reads the b, s and
+    h strides it is given."""
+    q, k, v = (t[..., :48] for t in _qkv(2, 96, 4, 2, 96, torch.bfloat16,
+                                         cuda, seed=3))
+    assert not q.is_contiguous() and q.stride(3) == 1
+    got = fa.flash_attention(q, k, v, window=40)
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_ref(q, k, v, window=40).float(),
+        **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_refuses(cuda):
+    q, k, v = _qkv(1, 32, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_cuda(q[:, :, :3], k, v)
+    big = _qkv(1, 32, 4, 2, 160, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(*big)
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention_cuda(q, k.transpose(2, 3).contiguous()
+                                .transpose(2, 3), v)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_cuda(q, k.bfloat16(), v)
+
+
+@pytest.mark.cuda
+def test_attn_forward_kernel_launches_and_skips_plain(cuda, monkeypatch):
+    cfg = ModelConfig("t", "dense", 2, 256, 4, 2, 512, 97, head_dim=64,
+                      sliding_window=40, dtype="float32")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = attn.attn_init(g, cfg, device=cuda)
+    x = torch.randn(2, 128, 256, generator=g, device=cuda)
+    want = attn.attn_forward(p, x, cfg, impl="plain")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain attention ran on CUDA tensors")
+    monkeypatch.setattr(fa, "flash_attention_ref", refuse)
+    monkeypatch.setattr(attn, "_sdpa", refuse)
+    n0 = fa.flash_attention_cuda.launches
+    got = attn.attn_forward(p, x, cfg, impl="kernel")
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))

@@ -77,7 +77,7 @@ def test_pad_device_data_and_eval(fed):
     for a, b in zip(j_pad(fj), t_pad(ft, device="cpu")):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     p = params_to_numpy(tcnn.cnn_init(torch.Generator().manual_seed(0),
-                                      (28, 28), 1, hidden=16))
+                                      (28, 28), 1, hidden=16, device="cpu"))
     tp = params_from_numpy(p, "cpu")
     for batch in (32, 70, 512):     # ragged tail, exact, one chunk
         acc_t = t_eval(tcnn.cnn_apply, tp, Xt, yt, batch=batch)
@@ -95,7 +95,7 @@ def test_hfl_global_iteration_matches_reference(fed):
     sizes = torch.tensor(ft.sizes, dtype=torch.float32)
     assign = np.array([0, 1, 3, 0, 3, 1])
     p0 = params_to_numpy(tcnn.cnn_init(torch.Generator().manual_seed(1),
-                                       (28, 28), 1, hidden=12))
+                                       (28, 28), 1, hidden=12, device="cpu"))
     kw = dict(M=4, L=2, Q=2, lr=0.05)
     ref = hfl_global_iteration(
         jcnn.cnn_apply, p0, jnp.asarray(Xp.numpy()),

@@ -33,7 +33,7 @@ def _weights(init, seed, *args, **kw):
     """Weights of ``repro``'s layout drawn from a seed (the torch init,
     as numpy): the one set of weights both packages start from."""
     return params_to_numpy(init(torch.Generator().manual_seed(seed), *args,
-                                **kw))
+                                device="cpu", **kw))
 
 
 def _images(seed, n, hw=(28, 28), c=1):
@@ -97,12 +97,12 @@ def test_mini_model_and_crop():
 
 def test_torch_init_shapes_and_scale():
     g = torch.Generator().manual_seed(0)
-    tp = tcnn.cnn_init(g, (28, 28), 1)
+    tp = tcnn.cnn_init(g, (28, 28), 1, device="cpu")
     jp = jcnn.cnn_init(jax.random.PRNGKey(0), (28, 28), 1)
     assert {k: tuple(v.shape) for k, v in tp.items()} == \
         {k: tuple(v.shape) for k, v in jp.items()}
     assert sum(v.numel() * 4 for v in tp.values()) == 457532
-    w = he_normal(g, (400, 300), fan_in=400)
+    w = he_normal(g, (400, 300), fan_in=400, device="cpu")
     assert abs(float(w.std()) - np.sqrt(2 / 400)) < 0.01 * np.sqrt(2 / 400)
 
 
