@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Setup: needs CUDA; turns TF32 off for matmuls and cuDNN; builds the
    CUDA kernels from ``src/repro_torch/csrc`` (into ``build/kernels``)
-   and prints the build time, each kernel's register report and the
+   and prints the build time, each kernel's register and spill report
+   (and any ptxas warning that it serialised wgmma instructions) and the
    card's name and power limit (``nvidia-smi``).
 2. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes and at edge cases, with the stated
@@ -50,14 +51,17 @@ compute):
 6. Flash attention: the kernel against its plain version at the
    prefill's shape (B=2, S=4096, 32 q heads, 2 KV heads, d=128, bf16)
    and at edge cases (ragged S, windows, head dims 16/48/80, MHA, f32,
-   a 16 384-token sequence), timed at the prefill's shape against the
-   bound, the plain version and PyTorch's SDPA.
+   a layout that TMA cannot read, a 16 384-token sequence), each on the
+   kernel its layout selects (wgmma, mma or fma: checked), timed at the
+   prefill's shape against the bound, the kernel's own floor (1.5x the
+   bound: P V runs twice, P's bf16 head and remainder), the plain version
+   and PyTorch's SDPA.
 7. A': two layers at full width in f32: the prefill through the kernel
-   (2 launches) against the plain prefill within LM_F32_TOL of the
+   (2 launches, fma) against the plain prefill within LM_F32_TOL of the
    largest logit, and the serving loop's teacher-forced decode logits
    against the kernel prefill of the same prompt, within the same.
 8. A: all 28 layers, bf16: the prefill through the kernel (28
-   launches) against the plain prefill (0), by the largest difference
+   launches, every one on the wgmma kernel) against the plain prefill (0), by the largest difference
    relative to the largest logit and by the share of positions whose
    argmax agrees (limits LM_BF16_REL, LM_BF16_AGREE); both against an
    f32 plain prefill, printed.
@@ -122,7 +126,12 @@ FA_CASES = (FA_MAIN,
             ("f32 prefill", 1, 1024, 32, 2, 128, 0, "float32"),
             ("f32 window 96", 1, 256, 8, 2, 64, 96, "float32"),
             ("f32 hd 80", 1, 200, 2, 1, 80, 50, "float32"),
+            ("hd 20 (no TMA)", 1, 200, 4, 2, 20, 0, "bfloat16"),
             ("long", 1, 16384, 2, 1, 128, 0, "bfloat16"))
+# the factor of the kernel's own arithmetic floor over the function's
+# bound: P enters P V as two bf16 operands (head and remainder), so it
+# computes Q K^T once and P V twice, 6d flops a pair for the bound's 4d
+FA_FLOOR = 1.5
 LM_ARCH, LM_SEED = "chatglm3-6b", 0
 LM_BATCH, LM_SEQ = 2, 4096                      # prefill batch
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 32, 64
@@ -319,7 +328,10 @@ def kernel_phase(torch, rate):
         flops = 2 * N * K * P + 2 * (N + K) * P + 3 * N * K
         bound = max(nbytes / rate, flops / F32_FLOPS) * 1e3
         by = "bytes" if nbytes / rate >= flops / F32_FLOPS else "operations"
-        print(f"pairwise_sq_dists {tag:10s} N={N:4d} P={P:4d} K={K:3d}: "
+        plan = kd.launch_plan(N, K, P, kd.sm_count(x.device))
+        print(f"pairwise_sq_dists {tag:10s} N={N:4d} P={P:4d} K={K:3d} "
+              f"[{plan.row_tiles}x{plan.col_tiles} tiles of 32x"
+              f"{plan.col_tile}, {plan.splits} splits of {plan.chunk}]: "
               f"kernel_ms={t_k:.5f} plain_ms={t_p:.5f} library_ms={t_l:.5f} "
               f"bound_us={bound * 1e3:.3f} ({by}) max_abs_err={err:.3e} | "
               f"eager kernel/plain/library_ms={e_k:.5f}/{e_p:.5f}/{e_l:.5f}")
@@ -427,7 +439,14 @@ def flash_phase(torch, rate):
         dtype = getattr(torch, dtype_name)
         q, k, v = (torch.randn(B, S, h, d, generator=g, device="cuda")
                    .to(dtype) for h in (Hq, Hkv, Hkv))
+        path = ("fma" if dtype == torch.float32 else
+                "mma" if "no TMA" in tag else "wgmma")
+        by0 = dict(fa.flash_attention_cuda.launches_by_path)
         got = fa.flash_attention(q, k, v, causal=True, window=window)
+        by0[path] += 1
+        check(fa.kernel_path(q, k, v) == path
+              and fa.flash_attention_cuda.launches_by_path == by0,
+              f"flash_attention {tag}: not launched on the {path} kernel")
         ref = fa.flash_attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         diff = (got.float() - ref.float()).abs()
@@ -438,10 +457,11 @@ def flash_phase(torch, rate):
               f"window={window} {dtype_name}: max_abs_err {err}")
         res["err"] = max(res["err"], err)
         line = (f"flash_attention {tag:16s} B={B} S={S:5d} Hq={Hq:2d} "
-                f"Hkv={Hkv} d={d:3d} window={window:2d} {dtype_name}: "
-                f"max_abs_err={err:.3e} (rtol {rtol:.3g}, atol {atol:g})")
+                f"Hkv={Hkv} d={d:3d} window={window:2d} {dtype_name} "
+                f"[{path}]: max_abs_err={err:.3e} (rtol {rtol:.3g}, atol "
+                f"{atol:g})")
         if tag in ("prefill", "long"):
-            t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v), 5)
+            t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v), 20)
             line += f" kernel_ms={t_k:.4f} eager_ms={e_k:.4f}"
         if tag == "prefill":
             t_p = time_events(torch, lambda: fa.flash_attention_ref(q, k, v),
@@ -460,11 +480,13 @@ def flash_phase(torch, rate):
             res.update(ms=t_k, eager_ms=e_k, plain_ms=t_p, library_ms=t_l,
                        bound_ms=max(by_bytes, by_flops) * 1e3,
                        bound_by="bytes" if by_bytes >= by_flops
-                       else "operations")
+                       else "operations",
+                       floor_ms=max(by_bytes, FA_FLOOR * by_flops) * 1e3)
             line += (f" plain_ms={t_p:.4f} library_ms={t_l:.4f} (sdpa "
                      f"max_abs_err vs plain {lib_err:.3e}) bound_ms="
                      f"{res['bound_ms']:.4f} ({res['bound_by']}: "
-                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB)")
+                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB) "
+                     f"kernel_floor_ms={res['floor_ms']:.4f}")
         print(line)
         del q, k, v, got, ref, diff
     return res
@@ -493,6 +515,7 @@ def peak_gb(torch) -> str:
 def lm_phases(torch, rate, zero_counts, read_counts):
     """Phases 6-9: K5, then chatglm3-6b's prefill and serving paths."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve_lm
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as T
@@ -508,8 +531,15 @@ def lm_phases(torch, rate, zero_counts, read_counts):
         zero_counts()
         logits, secs = timed(torch, lambda: make_prefill_step(cfg, impl)(
             params, {"tokens": tokens}))
-        read_counts(f"{cfg.name} n_layers={cfg.n_layers} {cfg.dtype} "
-                    f"prefill impl={impl}", {"flash_attention": expect})
+        label = (f"{cfg.name} n_layers={cfg.n_layers} {cfg.dtype} prefill "
+                 f"impl={impl}")
+        read_counts(label, {"flash_attention": expect})
+        by_path = dict.fromkeys(fa.PATHS, 0)
+        by_path["fma" if cfg.dtype == "float32" else "wgmma"] = expect
+        got = fa.flash_attention_cuda.launches_by_path
+        print(f"{label} flash_attention launches by path: {got} (expected "
+              f"{by_path})")
+        check(got == by_path, f"{label}: K5 launches by path {got}")
         check(bool(torch.isfinite(logits).all()),
               f"{impl} prefill logits not finite")
         print(f"  prefill impl={impl} B={tokens.shape[0]} "
@@ -678,6 +708,7 @@ def main() -> int:
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+        fa.flash_attention_cuda.launches_by_path = dict.fromkeys(fa.PATHS, 0)
 
     def read_counts(label, expect):
         got = {k: fn.launches for k, fn in counters.items()}
@@ -695,7 +726,7 @@ def main() -> int:
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
+                    or "Compiling entry" in line or "serialized" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -63,4 +63,7 @@ Pallas functions they replace:
   ``repro/kernels/kmeans_dist/kmeans_dist.py:pairwise_sq_dists_pallas``
 * ``csrc/flash_attention.cu`` ->
   ``repro/kernels/flash_attention/flash_attention.py:flash_attention_pallas``
+
+``csrc/hopper.cuh`` holds the Hopper building blocks (mbarriers, TMA
+loads, wgmma) that the kernels include.
 """

@@ -20,41 +20,61 @@
 // causal, bf16) that is 2.75e11 flops and 143 MB, so it is bound by
 // operations: 0.28 ms at the bf16 tensor-core rate.
 //
-// Design, common to both kernels: the TPU kernel walks every key tile as
+// Design, common to the kernels: the TPU kernel walks every key tile as
 // a sequential grid axis and skips unreachable ones with pl.when; Hopper
 // blocks share nothing, so one block owns one (q tile, q head, batch) and
 // loops over only the key tiles its rows can reach, from the window's
 // first key to the causal diagonal. Heavy (late) q tiles are launched
-// first. K and V tiles are staged in shared memory, zero-padded to the
-// template width DP >= d and beyond S; the (B, S, H, d) layout is read
-// through its strides (the d stride must be 1), nothing is padded or
-// transposed in device memory, and no row >= S is written. Masked scores
-// take the reference's finite -1e30: a row that is fully masked inside a
-// reachable tile gets exp(0) = 1 "garbage", which the next tile with a
-// real key clears through alpha = exp(-1e30 - m) = 0, exactly as in the
-// reference; -INFINITY would give exp(-inf + inf) = NaN there.
+// first. The (B, S, H, d) layout is read through its strides (the d
+// stride must be 1), nothing is padded or transposed in device memory,
+// and no row >= S is written. Masked scores take the reference's finite
+// -1e30: a row that is fully masked inside a reachable tile gets
+// exp(0) = 1 "garbage", which the next tile with a real key clears
+// through alpha = exp(-1e30 - m) = 0, exactly as in the reference;
+// -INFINITY would give exp(-inf + inf) = NaN there.
 //
-// * bf16 (the model's path): tensor cores through mma.sync m16n8k16 with
-//   f32 accumulators. Each of 4 warps owns 16 query rows of a 64-row tile
-//   and keeps its Q fragments in registers; a 64-key tile gives S = Q K^T
-//   in registers (products of bf16 are exact in f32), scaled and masked in
-//   f32, then the online softmax in f32 with each row's max reduced over
-//   the 4 lanes that hold it. P (f32) feeds P.V as two bf16 operands, a
-//   rounded head and its rounded remainder (p = hi + lo to ~2^-16), so
-//   the output keeps f32-level agreement with the plain version instead
-//   of the 2^-8 of a single bf16 P; V^T fragments come from ldmatrix.trans.
+// * bf16 with TMA-able inputs (the model's path; every b, s, h stride a
+//   positive multiple of 16 bytes and every base 16-byte aligned, which
+//   the wrapper tests): flash_attention_wgmma_kernel, warp-specialised.
+//   A producer warpgroup (one thread issuing, registers given back with
+//   setmaxnreg) loads Q once and K/V tiles of 128 keys into a ring of
+//   kWgStages = 3 stages with TMA, through 4-D tensor maps over
+//   (d, H, S, B) with the real strides and 64-column, 128-byte-swizzled
+//   boxes (d = 128 is two boxes; TMA zero-fills rows >= S and columns
+//   >= d, so nothing is padded). Full/empty mbarriers guard each stage,
+//   so loads overlap the math. Two consumer warpgroups own 64 query rows
+//   each of a 128-row tile: S = Q K^T by wgmma with both operands in
+//   shared memory, the online softmax in f32 registers (the wgmma
+//   accumulator of each warp is the mma.sync m16n8 layout repeated along
+//   N, so a row lives in a quad), masks only on the diagonal and
+//   window-edge tiles, then O += P V by wgmma with P from registers and
+//   V read MN-major from shared memory (the transpose bit). The softmax
+//   is what keeps the tensor cores idle, so it is hidden twice over, as
+//   in FlashAttention-3: a warpgroup issues tile j's P V together with
+//   tile j+1's Q K^T and computes j+1's softmax while they run, and the
+//   two warpgroups take turns to issue (named barriers), so one's
+//   softmax runs under the other's products. That asks a third ring
+//   stage (224 KB at d = 128): tile j+1's K must be loaded before tile
+//   j's P V is issued. P enters as a bf16 head plus its bf16 remainder
+//   (p = hi + lo to ~2^-16, two wgmmas on the same V tile) so the output
+//   keeps f32-level agreement with the plain version instead of the
+//   2^-8 of a single bf16 P; the products cost 1.5x the function's
+//   bound, the kernel's own arithmetic floor.
+// * bf16 otherwise: flash_attention_mma_kernel, mma.sync m16n8k16 from 4
+//   warps on 64 x 64 tiles staged through registers, V^T fragments from
+//   ldmatrix.trans; the same hi/lo P split.
 // * f32: the same tiling with f32 FMAs outside the tensor cores (the
 //   reference's f32 sweep and the 2-layer f32 oracle use it). Warp w owns
 //   rows w, w + 8, ... of a 64-row tile, lane l key l of a 32-key tile and
 //   output columns l, l + 32, ...; shuffles reduce and broadcast p.
-//
-// wgmma, TMA loads and a K/V ring in a warp-specialised pipeline are
-// later work.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -263,29 +283,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
 }
 
 // rows [r0, r0 + 64) of one head into a (64 x DP+8) tile, zero beyond S
-// and d; 16-byte loads when `vec` (d and the strides multiples of 8 and
-// the base 16-byte aligned)
+// and d, one element a thread at a time: this kernel takes the layouts
+// that 16-byte loads (and TMA) cannot read
 template <int DP>
 __device__ __forceinline__ void stage(bf16* tile, const bf16* base,
                                       int64_t row_stride, int r0, int S,
-                                      int d, bool vec) {
+                                      int d) {
   constexpr int P = DP + 8;
-  if (vec) {
-    constexpr int C = DP / 8;        // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < 64 * C; idx += kMmaThreads) {
-      const int r = idx / C, c = (idx % C) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < S && c < d)
-        val = *reinterpret_cast<const uint4*>(base + (r0 + r) * row_stride
-                                              + c);
-      *reinterpret_cast<uint4*>(tile + r * P + c) = val;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < 64 * DP; idx += kMmaThreads) {
-      const int r = idx / DP, c = idx % DP;
-      tile[r * P + c] = (r0 + r < S && c < d)
-          ? base[(r0 + r) * row_stride + c] : __float2bfloat16(0.f);
-    }
+  for (int idx = threadIdx.x; idx < 64 * DP; idx += kMmaThreads) {
+    const int r = idx / DP, c = idx % DP;
+    tile[r * P + c] = (r0 + r < S && c < d)
+        ? base[(r0 + r) * row_stride + c] : __float2bfloat16(0.f);
   }
 }
 
@@ -295,7 +303,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
                            int S, int Hq, int G, int d, Strides st,
-                           int causal, int window, float scale, int vec) {
+                           int causal, int window, float scale) {
   constexpr int P = DP + 8;          // row pitch (bf16): 16-byte aligned
                                      // rows whose 8 fragment rows hit
                                      // distinct banks
@@ -316,7 +324,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   const int row0 = q0 + warp * 16 + quad;       // this thread's rows:
   const int row1 = row0 + 8;                    // row0 and row0 + 8
 
-  stage<DP>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S, d, vec);
+  stage<DP>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S, d);
   __syncthreads();
   uint32_t qa[KS][4];                // A fragments of this warp's 16 rows
 #pragma unroll
@@ -339,8 +347,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   key_range(q0, kMmaBQ, S, causal, window, &k_begin, &k_end);
   for (int k0 = (k_begin / kMmaBK) * kMmaBK; k0 < k_end; k0 += kMmaBK) {
     __syncthreads();                 // previous tile fully consumed
-    stage<DP>(Ks, kb, st.ks, k0, S, d, vec);
-    stage<DP>(Vs, vb, st.vs, k0, S, d, vec);
+    stage<DP>(Ks, kb, st.ks, k0, S, d);
+    stage<DP>(Vs, vb, st.vs, k0, S, d);
     __syncthreads();
 
     // S = Q K^T: s[nt] holds keys nt*8 + pair + {0, 1} of row0 ([0], [1])
@@ -436,6 +444,323 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ------------------------------------- bf16, wgmma on TMA-fed tiles
+
+constexpr int kWgBQ = 128;           // query rows per block, 64 a consumer
+constexpr int kWgBK = 128;           // keys per tile
+constexpr int kWgStages = 3;         // depth of the K/V ring
+constexpr int kWgThreads = 384;      // consumer warpgroups 0, 1; producer 2
+constexpr int kBoxCols = 64;         // bf16 columns of a TMA box: 128 bytes
+constexpr int kProducerRegs = 24;    // setmaxnreg: 128 x 24 + 256 x 240
+constexpr int kConsumerRegs = 240;   // = 64 512 of the SM's 65 536
+
+// shared memory, as byte offsets from a 1024-byte-aligned base: Q (all
+// boxes of the 128-row tile), then per stage a K tile and a V tile, then
+// the mbarriers q_full and per stage k_full, v_full, empty
+template <int DP>
+struct WgLayout {
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kQBox = kWgBQ * 128;
+  static constexpr int kKBox = kWgBK * 128;
+  static constexpr int kQ = kBoxes * kQBox;
+  static constexpr int kKV = kBoxes * kKBox;
+  static constexpr int kBars = kQ + kWgStages * 2 * kKV;
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kWgStages)
+      + 1024;                        // room to align the base
+};
+
+// 2^x by the SFU's ex2.approx (a few f32 ulp; results below 2^-126
+// flush to 0), the softmax's exponential; exp2f adds range handling
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// O (64 x DP) += P (64 x 16, registers) V (16 x DP, MN-major)
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
+                                         const uint32_t (&p)[4],
+                                         uint64_t v) {
+  if constexpr (DP == 128)
+    hopper::wgmma_m64n128k16_rs_tb(o, p, v);
+  else
+    hopper::wgmma_m64n64k16_rs_tb(o, p, v);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             bf16* __restrict__ out, int B, int S, int Hq,
+                             int G, int d, int causal, int window,
+                             float scale_log2) {
+  using L = WgLayout<DP>;
+  constexpr int NS = kWgBK / 2;      // S accumulators a thread (64 x 128)
+  constexpr int NO = DP / 2;         // O accumulators a thread (64 x DP)
+  constexpr int KT = kWgBK / 16;     // k-steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, bars = base + L::kBars, q_full = bars;
+  auto k_s = [&](int st) { return base + L::kQ + st * 2 * L::kKV; };
+  auto v_s = [&](int st) { return k_s(st) + L::kKV; };
+  auto k_full = [&](int st) { return bars + 8 * (1 + 3 * st); };
+  auto v_full = [&](int st) { return bars + 8 * (2 + 3 * st); };
+  auto empty = [&](int st) { return bars + 8 * (3 + 3 * st); };
+
+  // heavy (late) q tiles first, over every head and batch
+  const int n_qt = (S + kWgBQ - 1) / kWgBQ, per_qt = Hq * B;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / per_qt);
+  const int h = blockIdx.x % per_qt % Hq, b = blockIdx.x % per_qt / Hq;
+  const int hk = h / G, q0 = qt * kWgBQ;
+  int k_begin, k_end;
+  key_range(q0, kWgBQ, S, causal, window, &k_begin, &k_end);
+  const int t0 = k_begin / kWgBK;
+  const int n_tiles = (k_end + kWgBK - 1) / kWgBK - t0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      hopper::mbar_init(k_full(st), 1);
+      hopper::mbar_init(v_full(st), 1);
+      hopper::mbar_init(empty(st), 2 * 128);   // every consumer thread
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---- producer: one thread keeps the ring full
+    hopper::regs_dealloc<kProducerRegs>();
+    if (tid == 256) {
+      hopper::mbar_expect_tx(q_full, L::kQ);
+      for (int nb = 0; nb < L::kBoxes; ++nb)
+        hopper::tma_load_4d(q_s + nb * L::kQBox, &qmap, q_full,
+                            nb * kBoxCols, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kWgStages, round = i / kWgStages;
+        if (round > 0) hopper::mbar_wait(empty(st), (round - 1) & 1);
+        const int k0 = (t0 + i) * kWgBK;
+        hopper::mbar_expect_tx(k_full(st), L::kKV);
+        for (int nb = 0; nb < L::kBoxes; ++nb)
+          hopper::tma_load_4d(k_s(st) + nb * L::kKBox, &kmap, k_full(st),
+                              nb * kBoxCols, hk, k0, b);
+        hopper::mbar_expect_tx(v_full(st), L::kKV);
+        for (int nb = 0; nb < L::kBoxes; ++nb)
+          hopper::tma_load_4d(v_s(st) + nb * L::kKBox, &vmap, v_full(st),
+                              nb * kBoxCols, hk, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows [r0, r0 + 64). The two take
+    // turns on the tensor cores (named barriers 1 and 2): in its turn a
+    // warpgroup issues Q K^T of the next tile and P V of this one, then
+    // runs the next tile's softmax while the other one's products run.
+    // Both walk every key tile of the block, as the reference's 128-row
+    // tiles do: one that none of a warpgroup's rows reaches (a window's
+    // first tile) gives them exp(0) "garbage", cleared at the next key.
+    hopper::regs_alloc<kConsumerRegs>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = q0 + wg * 64;
+    const int row0 = r0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
+    const int pair = (lane & 3) * 2;
+    const uint32_t q_wg = q_s + wg * 64 * 128;
+    auto turn_wait = [&] { hopper::bar_sync(1 + wg, 256); };
+    auto turn_pass = [&] { hopper::bar_arrive(2 - wg, 256); };
+
+    // S (64 x 128) = Q K^T of the tile in stage st, as one commit group:
+    // s[4j + 2hr + e] is row (hr ? row1 : row0), key k0 + 8j + pair + e.
+    // Each tile has its own s: a loop-carried s, last written in the
+    // softmax's masked/unmasked branches, makes ptxas serialise wgmma.
+    auto issue_qk = [&](float (&s)[NS], int st) {
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const int off = (ks / 4) * L::kQBox + (ks % 4) * 32;
+        const int koff = (ks / 4) * L::kKBox + (ks % 4) * 32;
+        hopper::wgmma_m64n128k16_ss(
+            s, hopper::sw128_desc(q_wg + off, 16, 1024),
+            hopper::sw128_desc(k_s(st) + koff, 16, 1024), ks);
+      }
+      hopper::wgmma_commit();
+    };
+
+    // O += P V for the tile in stage st, P = hi + lo (bf16 A fragments of
+    // keys 16kk..16kk+15), as one commit group
+    float o[NO];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] = 0.f;
+    uint32_t hi[KT][4], lo[KT][4];
+    auto issue_pv = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        const uint64_t vd =
+            hopper::sw128_desc(v_s(st) + kk * 16 * 128, L::kKBox, 1024);
+        wgmma_pv<DP>(o, hi[kk], vd);
+        wgmma_pv<DP>(o, lo[kk], vd);
+      }
+      hopper::wgmma_commit();
+    };
+    auto fence_pv = [&] {           // after the wait for a P V group
+#pragma unroll
+      for (int j = 0; j < NO; ++j) hopper::reg_fence(o[j]);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          hopper::reg_fence(hi[kk][f]);
+          hopper::reg_fence(lo[kk][f]);
+        }
+    };
+
+    // scale (log2 domain), mask where the tile is not inside every row's
+    // reach, and the online softmax statistics of the scores of tile k0;
+    // s becomes p, alpha the rescaling of O. A row lives in a quad.
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    auto softmax = [&](float (&s)[NS], int k0) {
+      const bool inside = k0 + kWgBK <= S
+          && (!causal || k0 + kWgBK - 1 <= r0)
+          && (window == 0 || k0 > r0 + 63 - window);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = hr ? row1 : row0;
+        float mx = kNegInf;
+        if (inside) {
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * hr + e];
+              x *= scale_log2;
+              mx = fmaxf(mx, x);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * hr + e];
+              x = keep(k0 + 8 * j + pair + e, row, S, causal, window)
+                  ? x * scale_log2 : kNegInf;
+              mx = fmaxf(mx, x);
+            }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        alpha[hr] = exp2_approx(m[hr] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hr + e];
+            x = exp2_approx(x - m_new);
+            ps += x;
+          }
+        l[hr] = alpha[hr] * l[hr] + ps;  // this lane's share, quad-summed
+        m[hr] = m_new;                   // at the end
+      }
+    };
+    // O *= alpha; p -> hi, lo
+    auto rescale_and_pack = [&](const float (&s)[NS]) {
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          o[4 * j + 2 * hr] *= alpha[hr];
+          o[4 * j + 2 * hr + 1] *= alpha[hr];
+        }
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const float* x = s + 8 * kk + 2 * f;
+          hi[kk][f] = pack(x[0], x[1]);
+          const __nv_bfloat162 t =
+              *reinterpret_cast<const __nv_bfloat162*>(&hi[kk][f]);
+          lo[kk][f] = pack(x[0] - __low2float(t), x[1] - __high2float(t));
+        }
+    };
+
+    // both warpgroups take n_tiles + 1 turns; warpgroup 0 goes first
+    if (wg == 1) turn_pass();
+    hopper::mbar_wait(q_full, 0);
+    hopper::mbar_wait(k_full(0), 0);
+    {
+      float s[NS];
+      turn_wait();
+      hopper::wgmma_fence();
+      issue_qk(s, 0);
+      turn_pass();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NS; ++j) hopper::reg_fence(s[j]);
+      softmax(s, t0 * kWgBK);
+      rescale_and_pack(s);
+    }
+    // every tile but the last: its P V and the next tile's Q K^T in one
+    // turn (no branch around a wgmma, or ptxas serialises them)
+    for (int i = 0; i + 1 < n_tiles; ++i) {
+      const int st = i % kWgStages, nst = (i + 1) % kWgStages;
+      hopper::mbar_wait(k_full(nst), ((i + 1) / kWgStages) & 1);
+      hopper::mbar_wait(v_full(st), (i / kWgStages) & 1);
+      float s[NS];
+      turn_wait();
+      hopper::wgmma_fence();
+      issue_qk(s, nst);
+      issue_pv(st);
+      turn_pass();
+      hopper::wgmma_wait<1>();           // S of the next tile
+#pragma unroll
+      for (int j = 0; j < NS; ++j) hopper::reg_fence(s[j]);
+      softmax(s, (t0 + i + 1) * kWgBK);
+      hopper::wgmma_wait<0>();           // P V of this tile
+      fence_pv();
+      hopper::mbar_arrive(empty(st));
+      rescale_and_pack(s);
+    }
+    {                                    // the last tile's P V
+      const int i = n_tiles - 1, st = i % kWgStages;
+      hopper::mbar_wait(v_full(st), (i / kWgStages) & 1);
+      turn_wait();
+      hopper::wgmma_fence();
+      issue_pv(st);
+      if (wg == 0) turn_pass();          // warpgroup 1's last turn ends it
+      hopper::wgmma_wait<0>();
+      fence_pv();
+      hopper::mbar_arrive(empty(st));
+    }
+
+    bf16* ob = out + ((int64_t)b * S * Hq + h) * d;
+    const bool pairs = (d & 1) == 0;       // 4-byte aligned bf16 pairs
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lt = l[hr];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row = hr ? row1 : row0;
+      if (row >= S) continue;
+      const float inv = 1.f / fmaxf(lt, 1e-30f);
+      bf16* orow = ob + (int64_t)row * Hq * d;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        const int c = 8 * j + pair;
+        const float x0 = o[4 * j + 2 * hr] * inv;
+        const float x1 = o[4 * j + 2 * hr + 1] * inv;
+        if (pairs && c + 1 < d) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (c < d) orow[c] = __float2bfloat16(x0);
+          if (c + 1 < d) orow[c + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------- launching
 
 // cudaFuncSetAttribute once per kernel, so that a launch inside a
@@ -466,7 +791,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
 }
 
 template <int DP>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                 int B, int S, int Hq, int Hkv, int d, const Strides& st,
                 int causal, int window, cudaStream_t stream) {
   static bool done = false;
@@ -474,14 +799,86 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   constexpr int bytes = mma_smem_bytes<DP>();
   const cudaError_t err = allow_smem(kernel, bytes, &done);
   if (err != cudaSuccess) return (int)err;
-  const int64_t all = st.qb | st.qs | st.qh | st.kb | st.ks | st.kh | st.vb
-      | st.vs | st.vh | d;
-  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  const int vec = (all % 8 == 0) && (addr % 16 == 0);
   const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, Hq, B);
   kernel<<<grid, kMmaThreads, bytes, stream>>>(
       q, k, v, out, S, Hq, Hq / Hkv, d, st, causal, window,
-      (float)(1.0 / sqrt((double)d)), vec);
+      (float)(1.0 / sqrt((double)d)));
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, through the runtime's
+// driver entry point, so that the library links nothing beyond the
+// runtime (the card's machine may have no unversioned libcuda.so)
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// host-side failures of the wgmma launch, below every cudaError_t
+constexpr int kErrNoEncoder = -1;    // no cuTensorMapEncodeTiled
+constexpr int kErrTensorMap = -2;    // the driver refused a tensor map
+
+// a (B, S, H, d) bf16 tensor with element strides sb, ss, sh (d stride 1)
+// as a 4-D map over (d, H, S, B) whose box is 64 columns x `rows` rows of
+// one head, 128-byte swizzled, zero outside the tensor
+bool make_map(EncodeTiledFn encode, CUtensorMap* map, const bf16* ptr,
+              int B, int S, int H, int d, int64_t sb, int64_t ss,
+              int64_t sh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const int64_t extent[3] = {H, S, B}, stride[3] = {sh, ss, sb};
+  cuuint64_t bytes[3];
+  for (int i = 0; i < 3; ++i)        // a dimension of size 1 is never
+    bytes[i] = extent[i] > 1         // stepped: any legal stride will do
+        ? (cuuint64_t)stride[i] * 2 : (cuuint64_t)((2 * d + 15) / 16 * 16);
+  const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)ptr, dims,
+                bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                 int B, int S, int Hq, int Hkv, int d, const Strides& st,
+                 int causal, int window, cudaStream_t stream) {
+  static bool done = false;
+  auto kernel = flash_attention_wgmma_kernel<DP>;
+  constexpr int bytes = WgLayout<DP>::kBytes;
+  const cudaError_t err = allow_smem(kernel, bytes, &done);
+  if (err != cudaSuccess) return (int)err;
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return kErrNoEncoder;
+  CUtensorMap qm, km, vm;            // 64-byte aligned by their type
+  if (!make_map(encode, &qm, q, B, S, Hq, d, st.qb, st.qs, st.qh, kWgBQ)
+      || !make_map(encode, &km, k, B, S, Hkv, d, st.kb, st.ks, st.kh, kWgBK)
+      || !make_map(encode, &vm, v, B, S, Hkv, d, st.vb, st.vs, st.vh, kWgBK))
+    return kErrTensorMap;
+  const int64_t blocks = (int64_t)((S + kWgBQ - 1) / kWgBQ) * Hq * B;
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  kernel<<<(unsigned)blocks, kWgThreads, bytes, stream>>>(
+      qm, km, vm, out, B, S, Hq, Hq / Hkv, d, causal, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -514,19 +911,40 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                          s);
 }
 
-extern "C" int flash_attention_bf16(const bf16* q, const bf16* k,
-                                    const bf16* v, bf16* out, int B, int S,
-                                    int Hq, int Hkv, int d,
-                                    const long long* strides, int causal,
-                                    int window, void* stream) {
+// The mma.sync kernel, for any bf16 layout the caller guarantees.
+extern "C" int flash_attention_bf16_mma(const bf16* q, const bf16* k,
+                                        const bf16* v, bf16* out, int B,
+                                        int S, int Hq, int Hkv, int d,
+                                        const long long* strides, int causal,
+                                        int window, void* stream) {
   const Strides st = strides_of(strides);
   const cudaStream_t s = (cudaStream_t)stream;
   if (d <= 32)
-    return launch_bf16<32>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
-                           window, s);
+    return launch_mma<32>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
+                          window, s);
   if (d <= 64)
-    return launch_bf16<64>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
+    return launch_mma<64>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
+                          window, s);
+  return launch_mma<128>(q, k, v, out, B, S, Hq, Hkv, d, st, causal, window,
+                         s);
+}
+
+// The wgmma kernel. The caller guarantees in addition: every base address
+// 16-byte aligned, every b, s, h stride of a dimension longer than 1 a
+// positive multiple of 8 elements, and ceil(S / 128) * Hq * B < 2^31.
+// Returns kErrNoEncoder or kErrTensorMap (negative) when the tensor maps
+// cannot be made.
+extern "C" int flash_attention_bf16_wgmma(const bf16* q, const bf16* k,
+                                          const bf16* v, bf16* out, int B,
+                                          int S, int Hq, int Hkv, int d,
+                                          const long long* strides,
+                                          int causal, int window,
+                                          void* stream) {
+  const Strides st = strides_of(strides);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (d <= 64)
+    return launch_wgmma<64>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
+                            window, s);
+  return launch_wgmma<128>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
                            window, s);
-  return launch_bf16<128>(q, k, v, out, B, S, Hq, Hkv, d, st, causal, window,
-                          s);
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``build/kernels/lib<name>-<hash>.so`` at the repository root
-(a directory git ignores). The hash covers the source and the flags, so
-an edited source builds anew and an unchanged one is reused. Nothing is
+(a directory git ignores). The hash covers the source, every
+``csrc`` header that it includes and the flags, so an edited source or
+header builds anew and an unchanged one is reused. Nothing is
 built when a module is imported: :func:`library` builds on first use,
 and :func:`build` compiles every missing library at once, one ``nvcc``
 process per source, all started together.
@@ -13,10 +14,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -35,10 +37,30 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers that it includes,
+    directly or through another header, in the order first reached."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).is_file()]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+    tag = hashlib.sha256()
+    for path in _inputs(name):
+        tag.update(path.name.encode() + path.read_bytes())
+    tag.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{tag.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:

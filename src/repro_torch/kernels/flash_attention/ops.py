@@ -7,11 +7,14 @@ Replaces ``repro.kernels.flash_attention``'s ``flash_attention_pallas``
 (B, S, Hq, d), k and v (B, S, Hkv, d) with Hq % Hkv == 0; q head h reads
 KV head h // (Hq // Hkv). Key j is kept for query i when j <= i (causal),
 j > i - window (window > 0) and j < S; the softmax is f32 and the output
-has q's dtype. The kernel is ``csrc/flash_attention.cu`` (see its header
-for what bounds it on the card and how the design answers that): bf16
-runs on the tensor cores, f32 on f32 FMAs, both with f32 softmax
-statistics. It reads the layout through its strides, so the reference's
-transposes and its padding of d and S exist nowhere here.
+has q's dtype. The kernels are in ``csrc/flash_attention.cu`` (see its
+header for what bounds them on the card and how the design answers
+that), one per path that :func:`kernel_path` picks from the inputs:
+``"wgmma"`` (bf16 whose layout TMA can read: warpgroup MMAs on tiles
+that TMA loads), ``"mma"`` (any other bf16 layout: mma.sync) and
+``"fma"`` (f32: f32 FMAs), all with f32 softmax statistics. They read
+the layout through its strides, so the reference's transposes and its
+padding of d and S exist nowhere here.
 """
 from __future__ import annotations
 
@@ -25,8 +28,13 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_ENTRIES = {torch.float32: "flash_attention_f32",
-            torch.bfloat16: "flash_attention_bf16"}
+PATHS = ("wgmma", "mma", "fma")
+_ENTRIES = {"wgmma": "flash_attention_bf16_wgmma",
+            "mma": "flash_attention_bf16_mma",
+            "fma": "flash_attention_f32"}
+# host-side failures of the wgmma launch (negative return codes)
+_HOST_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+                -2: "the driver refused a TMA tensor map"}
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,9 +59,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, Hq, d).to(q.dtype)
 
 
+def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that :func:`flash_attention_cuda` launches for these
+    inputs, from their dtype, shapes, strides and base addresses alone:
+    ``"fma"`` for f32; for bf16 ``"wgmma"`` when TMA can read all three
+    (each base address 16-byte aligned and each b, s, h stride of a
+    dimension longer than 1 a positive multiple of 16 bytes), else
+    ``"mma"``. Works on tensors on any device."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            return "mma"
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            if n > 1 and (st <= 0 or st * t.element_size() % 16):
+                return "mma"
+    return "wgmma"
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.library("flash_attention"), _ENTRIES[dtype])
+def _entry(path: str):
+    fn = getattr(build.library("flash_attention"), _ENTRIES[path])
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
@@ -64,10 +90,12 @@ def _entry(dtype: torch.dtype):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0
                          ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. Takes q (B, S, Hq, d)
-    and k, v (B, S, Hkv, d) on one CUDA device, all f32 or all bf16, unit
-    stride in d, Hq % Hkv == 0 and d <= 128; raises on anything else and
-    on a refused launch. Returns a contiguous (B, S, Hq, d) tensor."""
+    """Launch the CUDA kernel of :func:`kernel_path` on the current
+    stream. Takes q (B, S, Hq, d) and k, v (B, S, Hkv, d) on one CUDA
+    device, all f32 or all bf16, unit stride in d, Hq % Hkv == 0 and
+    d <= 128; raises on anything else and on a refused launch. Returns a
+    contiguous (B, S, Hq, d) tensor. Counts each launch in ``launches``
+    and in ``launches_by_path[path]``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B, S, Hq, d) and k, v (B, S, Hkv, d), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -82,7 +110,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside the kernel's 1..."
                          f"{MAX_HEAD_DIM}")
-    if q.dtype not in _ENTRIES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -96,25 +124,31 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535 or Hq > 65535 or window < 0:
         raise ValueError(f"B={B}, Hq={Hq}, window={window} beyond the "
                          "kernel's grid")
+    path = kernel_path(q, k, v)
+    if path == "wgmma" and -(-S // 128) * Hq * B >= 2 ** 31:
+        raise ValueError(f"B={B}, S={S}, Hq={Hq} beyond the kernel's grid")
     out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))
     with torch.cuda.device(q.device):
-        err = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, S, Hq, Hkv, d,
-                              ctypes.addressof(strides), int(bool(causal)),
-                              int(window),
-                              torch.cuda.current_stream().cuda_stream)
+        err = _entry(path)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), B, S, Hq, Hkv, d,
+                           ctypes.addressof(strides), int(bool(causal)),
+                           int(window),
+                           torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        why = _HOST_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {path} kernel launch failed: "
+                           f"{why}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_path[path] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -114,7 +114,9 @@ def test_weighted_aggregate_kernel_matches_plain(cuda, S, M, H, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,P,K", [(100, 1640, 10), (1000, 1000, 200),
-                                   (37, 130, 3)])
+                                   (37, 130, 3),
+                                   (1, 1, 1),         # one of everything
+                                   (3, 16385, 5)])    # many splits of P
 def test_pairwise_sq_dists_kernel_matches_plain(cuda, N, P, K):
     g = torch.Generator().manual_seed(N + K)
     x = torch.randn(N, P, generator=g).to(cuda)
@@ -126,6 +128,18 @@ def test_pairwise_sq_dists_kernel_matches_plain(cuda, N, P, K):
     ref = kd.pairwise_sq_dists_ref(x, c)
     torch.testing.assert_close(got, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.max()))
+
+
+@pytest.mark.cuda
+def test_pairwise_sq_dists_cluster_sum_is_repeatable(cuda):
+    """Rank 0 sums the cluster's partials in a fixed order: two launches
+    on the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(100, 1640, generator=g).to(cuda)
+    c = torch.randn(10, 1640, generator=g).to(cuda)
+    assert kd.launch_plan(100, 10, 1640).splits > 1
+    first = kd.pairwise_sq_dists(x, c)
+    assert torch.equal(first, kd.pairwise_sq_dists(x, c))
 
 
 @pytest.mark.cuda
@@ -180,13 +194,61 @@ def _qkv(B, S, Hq, Hkv, d, dtype, device, seed=0):
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, Hq, Hkv, d,
                                               window, causal):
     q, k, v = _qkv(B, S, Hq, Hkv, d, dtype, cuda, seed=S + d)
-    n0 = fa.flash_attention_cuda.launches
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert fa.flash_attention_cuda.launches == n0 + 1
+    path = "fma" if dtype == torch.float32 else "wgmma"
+    got = _launch_checked(q, k, v, path, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), ref.float(), **FA_TOL[dtype])
+
+
+def _launch_checked(q, k, v, path, **kw):
+    """One dispatcher call that must launch the kernel of ``path`` once."""
+    n0 = fa.flash_attention_cuda.launches
+    by0 = dict(fa.flash_attention_cuda.launches_by_path)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.kernel_path(q, k, v) == path
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    by0[path] += 1
+    assert fa.flash_attention_cuda.launches_by_path == by0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,window,causal", [
+    (1, 1, 4, 2, 128, 0, True),        # one token
+    (2, 65, 8, 2, 128, 0, True),       # one past a consumer's 64 rows
+    (1, 129, 4, 1, 64, 0, True),       # one past a 128-row tile
+    (1, 129, 4, 2, 128, 0, False),     # and non-causal
+    (1, 4095, 8, 2, 128, 0, True),     # one short of the prefill's S
+    (1, 300, 4, 2, 128, 1, True),      # window 1: each row sees itself
+    (1, 300, 4, 2, 80, 130, True),     # window across two key tiles
+])
+def test_flash_attention_wgmma_tile_edges(cuda, B, S, Hq, Hkv, d, window,
+                                          causal):
+    q, k, v = _qkv(B, S, Hq, Hkv, d, torch.bfloat16, cuda, seed=S + 7)
+    got = _launch_checked(q, k, v, "wgmma", causal=causal, window=window)
+    ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["d=20", "offset"])
+def test_flash_attention_unaligned_bf16_takes_mma(cuda, layout):
+    """Inputs TMA cannot read (a stride or base address off 16 bytes) take
+    the mma.sync kernel, chosen by the layout alone."""
+    if layout == "d=20":                # h stride of 40 bytes
+        q, k, v = _qkv(1, 150, 4, 2, 20, torch.bfloat16, cuda, seed=11)
+    else:                               # base 2 bytes past an alignment
+        q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                   .view(t.shape) for t in _qkv(1, 150, 4, 2, 64,
+                                                torch.bfloat16, cuda,
+                                                seed=12))
+    got = _launch_checked(q, k, v, "mma", window=40)
+    ref = fa.flash_attention_ref(q, k, v, window=40)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -196,7 +258,7 @@ def test_flash_attention_reads_strided_inputs(cuda):
     q, k, v = (t[..., :48] for t in _qkv(2, 96, 4, 2, 96, torch.bfloat16,
                                          cuda, seed=3))
     assert not q.is_contiguous() and q.stride(3) == 1
-    got = fa.flash_attention(q, k, v, window=40)
+    got = _launch_checked(q, k, v, "wgmma", window=40)
     torch.testing.assert_close(
         got.float(), fa.flash_attention_ref(q, k, v, window=40).float(),
         **FA_TOL[torch.bfloat16])
@@ -235,8 +297,10 @@ def test_attn_forward_kernel_launches_and_skips_plain(cuda, monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_ref", refuse)
     monkeypatch.setattr(attn, "_sdpa", refuse)
     n0 = fa.flash_attention_cuda.launches
+    fma0 = fa.flash_attention_cuda.launches_by_path["fma"]
     got = attn.attn_forward(p, x, cfg, impl="kernel")
     torch.cuda.synchronize()
     assert fa.flash_attention_cuda.launches == n0 + 1
+    assert fa.flash_attention_cuda.launches_by_path["fma"] == fma0 + 1
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))

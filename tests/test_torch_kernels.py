@@ -28,6 +28,8 @@ from repro.kernels.hier_agg.ref import (masked_aggregate_ref,
                                         weighted_aggregate_ref)
 from repro.kernels.kmeans_dist.kmeans_dist import pairwise_sq_dists_pallas
 from repro.kernels.kmeans_dist.ref import pairwise_sq_dists_ref
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.hier_agg import ops as ha
 from repro_torch.kernels.kmeans_dist import ops as kd
 
@@ -260,3 +262,104 @@ def test_cpu_dispatch_launches_nothing():
     ha.weighted_aggregate(torch.ones(2, 3), torch.ones(3, 4))
     kd.pairwise_sq_dists(torch.ones(3, 4), torch.ones(2, 4))
     assert [c.launches for c in counters] == before
+
+
+# ------------------------------------- launch choices the card would make
+
+def _zeros(shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+_PATH_CASES = {
+    # name: (q, k, v builder, the kernel flash_attention_cuda launches)
+    "f32": (lambda: [_zeros((1, 8, 4, 64), torch.float32)] * 3, "fma"),
+    "bf16 contiguous d=128": (
+        lambda: [_zeros((2, 8, 4, 128)), _zeros((2, 8, 2, 128)),
+                 _zeros((2, 8, 2, 128))], "wgmma"),
+    "bf16 d=48 slice of d=96": (
+        lambda: [_zeros((2, 8, h, 96))[..., :48] for h in (4, 2, 2)],
+        "wgmma"),
+    "bf16 d=16": (lambda: [_zeros((2, 8, 4, 16))] * 3, "wgmma"),
+    "bf16 d=20": (lambda: [_zeros((2, 8, 4, 20))] * 3, "mma"),
+    "bf16 base off by one element": (
+        lambda: [_zeros((1, 8, 2, 64))] * 2
+        + [_zeros((1 * 8 * 2 * 64 + 1,))[1:].view(1, 8, 2, 64)], "mma"),
+    "bf16 heads-major layout": (
+        lambda: [_zeros((2, 4, 8, 64)).transpose(1, 2)] * 3, "wgmma"),
+    "bf16 broadcast batch": (
+        lambda: [_zeros((2, 8, 2, 64)), _zeros((1, 8, 2, 64)).expand(
+            2, 8, 2, 64), _zeros((2, 8, 2, 64))], "mma"),
+    "bf16 size-1 dims at any stride": (
+        lambda: [_zeros((64 * 8,)).as_strided((1, 8, 1, 64), (3, 64, 5, 1))]
+        * 3, "wgmma"),
+    "bf16 s stride of 8 bytes": (lambda: [_zeros((1, 8, 1, 4))] * 3, "mma"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PATH_CASES))
+def test_flash_attention_path_choice(name):
+    """Which kernel a CUDA input takes follows from its dtype, strides
+    and base addresses alone, so it is decided here on CPU tensors."""
+    make, want = _PATH_CASES[name]
+    assert fa.kernel_path(*make()) == want
+
+
+@pytest.mark.parametrize("N,K,P,sms", [
+    (100, 10, 1640, 132),     # the clustering: 4 tiles, 8 splits
+    (1000, 200, 1000, 132),   # 224 tiles fill the card: 1 split
+    (37, 3, 130, 132),
+    (1, 1, 1, 132),
+    (1, 1, 16385, 132),
+    (5, 2, 7, 132),
+    (1, 1, 0, 132),
+    (64, 600, 200, 132),      # K > 128
+    (4096, 10, 1640, 132),    # 128 tiles: 2 splits
+    (100, 17, 5000, 16),      # a smaller card
+])
+def test_pairwise_sq_dists_launch_plan(N, K, P, sms):
+    plan = kd.launch_plan(N, K, P, sms)
+    assert plan.col_tile == (16 if K <= 16 else 32)
+    assert plan.row_tiles * kd.ROW_TILE >= N > (plan.row_tiles - 1) \
+        * kd.ROW_TILE
+    assert plan.col_tiles * plan.col_tile >= K > (plan.col_tiles - 1) \
+        * plan.col_tile
+    # the grid's x is one cluster of `splits` blocks, at most the portable 8
+    assert 1 <= plan.splits <= kd.MAX_SPLITS
+    if plan.splits > 1:
+        assert plan.chunk * (plan.splits - 1) < P <= plan.chunk * plan.splits
+    # every column of P in exactly one split, no split empty
+    cover = np.zeros(P, int)
+    for s in range(plan.splits):
+        lo, hi = s * plan.chunk, min(P, (s + 1) * plan.chunk)
+        assert hi > lo or P == 0
+        cover[lo:hi] += 1
+    assert np.all(cover == 1)
+    tiles = plan.row_tiles * plan.col_tiles
+    if tiles >= sms:
+        assert plan.splits == 1
+    elif P >= 2 * kd.P_STEP:
+        assert plan.splits > 1
+    assert plan.chunk >= min(P, kd.P_STEP) or plan.splits == 1
+
+
+def test_library_path_covers_every_header(tmp_path, monkeypatch):
+    """A library is keyed by its source, every csrc header that it
+    includes (directly or through another header) and the flags: editing
+    such a header builds anew, editing one it does not include does not."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\n// one\n')
+    (tmp_path / "g.cuh").write_text("// one\n")
+    (tmp_path / "other.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\n// two\n')
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// two\n")
+    third = build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "other.cuh").write_text("// two\n")
+    assert build.library_path("k") == third
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second, third)
