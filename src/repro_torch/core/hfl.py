@@ -8,10 +8,11 @@ data-size-weighted edge aggregation (2). After Q edge iterations the
 cloud aggregates the edge models weighted by their cohort data sizes (3).
 
 Aggregation has two backends selected by ``agg_kernel``: a masked matmul
-against the assignment one-hot (the parity oracle), or the
+against the assignment one-hot, leaf by leaf (the parity oracle), or the
 ``kernels/hier_agg`` masked aggregation, which builds the normalised
-(M, H) weight panel from the one-hot and the device sizes itself (the
-CUDA kernel on a card, its plain version on the CPU). Both share the
+(M, H) weight panel from the one-hot and the device sizes itself and
+takes every leaf of a hop in one call (one CUDA launch on a card, its
+plain version on the CPU). Both share the
 empty-edge keep (edges with no devices keep their model) and give empty
 edges zero cloud weight. With an uplink codec both uplinks ship encoded
 deltas, and ``agg_kernel`` selects between the masked decode-aggregate
@@ -32,8 +33,8 @@ import torch.nn.functional as F
 from repro_torch.core import compression as comp
 from repro_torch.core.local_train import cohort_local_sgd
 from repro_torch.data.partition import FederatedData
-from repro_torch.kernels.hier_agg.ops import (masked_aggregate,
-                                              masked_decode_aggregate)
+from repro_torch.kernels.hier_agg.ops import (
+    masked_aggregate_leaves, masked_decode_aggregate_leaves)
 from repro_torch.utils import Params, Stopwatch, phase, resolve_device
 
 
@@ -91,44 +92,50 @@ def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
     edge_tot = onehot.T @ w_dev                                # (M,) D_{N_m}
     has_dev = edge_tot > 0
 
+    # Each aggregation takes the (rows, P_i) leaves of one hop, in the
+    # params' order, and returns their (M, P_i) or (P_i,) results.
     if agg_kernel:
         mask_edge = onehot.T.contiguous()
 
-        def edge_aggregate(flat):
-            return masked_aggregate(mask_edge, w_dev, flat)
+        def edge_aggregate(flats):
+            return masked_aggregate_leaves(mask_edge, w_dev, flats)
 
         # eq. (3) = the same kernel with an all-ones (1, M) mask over the
         # per-edge cohort sizes D_{N_m} (empty edges weigh 0 already)
         ones = torch.ones((1, M), dtype=torch.float32, device=w_dev.device)
 
-        def cloud_aggregate(flat):
-            return masked_aggregate(ones, edge_tot, flat)[0]
+        def cloud_aggregate(flats):
+            return [o[0] for o in masked_aggregate_leaves(ones, edge_tot,
+                                                          flats)]
 
         # compressed path: the scales fold into the kernel's panel and
         # the wire-format q is read undecoded
-        def edge_dec_aggregate(sc, q):
-            return masked_decode_aggregate(mask_edge, w_dev, sc, q)
+        def edge_dec_aggregate(scs, qs):
+            return masked_decode_aggregate_leaves(mask_edge, w_dev, scs, qs)
 
-        def cloud_dec_aggregate(sc, q):
-            return masked_decode_aggregate(ones, edge_tot, sc, q)[0]
+        def cloud_dec_aggregate(scs, qs):
+            return [o[0] for o in masked_decode_aggregate_leaves(
+                ones, edge_tot, scs, qs)]
     else:
         w_edge = (onehot.T * w_dev[None, :]) \
             / torch.clamp_min(edge_tot, 1.0)[:, None]          # (M, H)
         w_cloud = torch.where(has_dev, edge_tot, 0.0)
         w_cloud = w_cloud / torch.clamp_min(torch.sum(w_cloud), 1.0)
 
-        def edge_aggregate(flat):
-            return w_edge @ flat
+        def edge_aggregate(flats):
+            return [w_edge @ flat for flat in flats]
 
-        def cloud_aggregate(flat):
-            return w_cloud @ flat
+        def cloud_aggregate(flats):
+            return [w_cloud @ flat for flat in flats]
 
         # dense decode, then the matmul: the oracle of the kernel path
-        def edge_dec_aggregate(sc, q):
-            return w_edge @ comp.decode_rows(codec, q, sc)
+        def edge_dec_aggregate(scs, qs):
+            return [w_edge @ comp.decode_rows(codec, q, sc)
+                    for sc, q in zip(scs, qs)]
 
-        def cloud_dec_aggregate(sc, q):
-            return w_cloud @ comp.decode_rows(codec, q, sc)
+        def cloud_dec_aggregate(scs, qs):
+            return [w_cloud @ comp.decode_rows(codec, q, sc)
+                    for sc, q in zip(scs, qs)]
 
     def encode(hop, name, d, r):
         u = (noise(hop, name, tuple(d.shape)) if codec.codec == "int8"
@@ -148,38 +155,57 @@ def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
             dev_params = cohort_local_sgd(apply_fn, pulled, X, y, mask, L,
                                           lr)
         with phase(stopwatch, "aggregate"):
-            new_edge = {}
-            for k, trained in dev_params.items():
-                old = edge_params[k]
-                if compress:
-                    # (2) in delta space, on the decoded uplinks
-                    d = (trained - pulled[k]).reshape(H, -1).float()
+            names = list(dev_params)
+            if compress:
+                # (2) in delta space, on the decoded uplinks: every leaf
+                # is encoded, then one aggregation takes them all
+                qs, scs = [], []
+                for k in names:
+                    d = (dev_params[k] - pulled[k]).reshape(H, -1).float()
                     q, sc, nr = encode(hop, k, d, dev_resid[k].reshape(H, -1))
                     dev_resid[k] = nr.reshape(dev_resid[k].shape)
-                    new = old.reshape(M, -1) + edge_dec_aggregate(sc, q)
+                    qs.append(q)
+                    scs.append(sc)
+                aggs = edge_dec_aggregate(scs, qs)
+                new_edge = {}
+                for k, agg in zip(names, aggs):
+                    old = edge_params[k]
+                    new = old.reshape(M, -1) + agg
                     new_edge[k] = new.reshape(old.shape).to(old.dtype)
-                else:
-                    # (2): weighted average per edge; empty edges keep
-                    # their model
-                    new = edge_aggregate(trained.reshape(H, -1)).reshape(
-                        old.shape)
-                    keep = has_dev.reshape((M,) + (1,) * (trained.dim() - 1))
-                    new_edge[k] = torch.where(keep, new, old).to(old.dtype)
+            else:
+                # (2): weighted average per edge; empty edges keep their
+                # model
+                aggs = edge_aggregate([dev_params[k].reshape(H, -1)
+                                       for k in names])
+                new_edge = {}
+                for k, agg in zip(names, aggs):
+                    old = edge_params[k]
+                    keep = has_dev.reshape((M,) + (1,) * (old.dim() - 1))
+                    new_edge[k] = torch.where(keep, agg.reshape(old.shape),
+                                              old).to(old.dtype)
             edge_params = new_edge
 
     # (3): cloud aggregation, weights D_{N_m} (empty edges weigh 0)
     with phase(stopwatch, "aggregate"):
+        names = list(edge_params)
         if not compress:
-            return {k: cloud_aggregate(e.reshape(M, -1)).reshape(e.shape[1:])
-                    .to(e.dtype) for k, e in edge_params.items()}
-        new_global, new_edge_resid = {}, {}
-        for k, e in edge_params.items():
+            aggs = cloud_aggregate([edge_params[k].reshape(M, -1)
+                                    for k in names])
+            return {k: agg.reshape(edge_params[k].shape[1:])
+                    .to(edge_params[k].dtype) for k, agg in zip(names, aggs)}
+        qs, scs, new_edge_resid = [], [], {}
+        for k in names:
             g = global_params[k]
-            d = (e.reshape(M, -1) - g.reshape(1, -1)).float()
+            d = (edge_params[k].reshape(M, -1) - g.reshape(1, -1)).float()
             q, sc, nr = encode(Q, k, d, edge_resid[k].reshape(M, -1))
-            new_global[k] = (g.reshape(-1) + cloud_dec_aggregate(sc, q)) \
-                .reshape(g.shape).to(g.dtype)
             new_edge_resid[k] = nr.reshape(edge_resid[k].shape)
+            qs.append(q)
+            scs.append(sc)
+        aggs = cloud_dec_aggregate(scs, qs)
+        new_global = {}
+        for k, agg in zip(names, aggs):
+            g = global_params[k]
+            new_global[k] = (g.reshape(-1) + agg).reshape(g.shape).to(g.dtype)
         return new_global, dev_resid, new_edge_resid
 
 

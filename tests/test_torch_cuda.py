@@ -61,10 +61,10 @@ def _agg_inputs(seed, S, M, H, P, empty, device):
 ])
 def test_masked_aggregate_kernel_matches_plain(cuda, S, M, H, P, empty):
     mask, sizes, deltas = _agg_inputs(S + H, S, M, H, P, empty, cuda)
-    n0 = ha.masked_aggregate_batched_cuda.launches
+    n0 = ha.masked_aggregate_leaves_batched_cuda.launches
     got = ha.masked_aggregate_batched(mask, sizes, deltas)
     torch.cuda.synchronize()
-    assert ha.masked_aggregate_batched_cuda.launches == n0 + 1
+    assert ha.masked_aggregate_leaves_batched_cuda.launches == n0 + 1
     ref = ha.masked_aggregate_batched_ref(mask, sizes, deltas)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     for m in empty:
@@ -87,10 +87,10 @@ def test_masked_decode_aggregate_kernel_matches_plain(cuda, dtype, S, M, H,
     scales = torch.rand(S, H, device=cuda) * 0.02
     q = ((deltas * 40).clamp(-127, 127).round().to(dtype)
          if dtype == torch.int8 else deltas.to(dtype))
-    n0 = ha.masked_decode_aggregate_batched_cuda.launches
+    n0 = ha.masked_decode_aggregate_leaves_batched_cuda.launches
     got = ha.masked_decode_aggregate_batched(mask, sizes, scales, q)
     torch.cuda.synchronize()
-    assert ha.masked_decode_aggregate_batched_cuda.launches == n0 + 1
+    assert ha.masked_decode_aggregate_leaves_batched_cuda.launches == n0 + 1
     ref = ha.masked_decode_aggregate_batched_ref(mask, sizes, scales, q)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     for m in empty:
@@ -104,10 +104,10 @@ def test_weighted_aggregate_kernel_matches_plain(cuda, S, M, H, P):
     mask, sizes, deltas = _agg_inputs(S + H, S, M, H, P, (), cuda)
     w = mask * sizes[:, None, :]
     w = w / w.sum(2, keepdim=True).clamp_min(1.0)
-    n0 = ha.weighted_aggregate_batched_cuda.launches
+    n0 = ha.weighted_aggregate_leaves_batched_cuda.launches
     got = ha.weighted_aggregate_batched(w, deltas)
     torch.cuda.synchronize()
-    assert ha.weighted_aggregate_batched_cuda.launches == n0 + 1
+    assert ha.weighted_aggregate_leaves_batched_cuda.launches == n0 + 1
     torch.testing.assert_close(got, ha.weighted_aggregate_batched_ref(
         w, deltas), rtol=1e-5, atol=1e-5)
 
@@ -165,6 +165,128 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         ha.weighted_aggregate_batched_cuda(torch.ones(1, 2, 3, device=cuda),
                                            torch.ones(1, 4, 5, device=cuda))
+
+
+def _wire(deltas, dtype):
+    """Wire-format updates of a codec: int8 levels, bf16 or f32."""
+    return ((deltas * 40).clamp(-127, 127).round().to(dtype)
+            if dtype == torch.int8 else deltas.to(dtype))
+
+
+def _misalign(t):
+    """A copy of ``t`` whose data starts 4 bytes past an aligned address."""
+    pad = 4 // t.element_size()
+    return torch.cat([t.new_zeros(pad), t.flatten()])[pad:].view(t.shape)
+
+
+# kernel -> (operand dtype, grouped dispatcher, plain version, counter)
+GROUPED = {
+    "masked": (torch.float32,
+               lambda m, s, sc, x: ha.masked_aggregate_leaves_batched(m, s, x),
+               lambda m, s, sc, x: ha.masked_aggregate_leaves_batched_ref(
+                   m, s, x), "masked_aggregate_leaves_batched_cuda"),
+    "weighted": (torch.float32,
+                 lambda m, s, sc, x: ha.weighted_aggregate_leaves_batched(
+                     m, x),
+                 lambda m, s, sc, x: ha.weighted_aggregate_leaves_batched_ref(
+                     m, x), "weighted_aggregate_leaves_batched_cuda"),
+    **{f"decode-{name}": (
+        dtype, ha.masked_decode_aggregate_leaves_batched,
+        ha.masked_decode_aggregate_leaves_batched_ref,
+        "masked_decode_aggregate_leaves_batched_cuda")
+       for name, dtype in (("int8", torch.int8), ("bf16", torch.bfloat16),
+                           ("f32", torch.float32))},
+}
+# case -> (S, M, H, leaf widths, leaves offset by 4 bytes, empty edges)
+GROUP_CASES = {
+    "cnn edge hop": (1, 5, 50, (375, 10500, 101248, 2260), (), ()),
+    "cnn cloud hop": (1, 1, 5, (375, 10500, 101248, 2260), (), ()),
+    "mixed alignment": (1, 5, 50, (256, 375, 1024, 33, 4096), (2, 4), (3,)),
+    "lanes": (3, 5, 26, (700, 2260, 64), (1,), ()),
+    "M=12": (1, 12, 50, (2260, 375), (), (4,)),
+    "large-H": (1, 5, 4096, (10500,), (), ()),
+    "beyond the table": (1, 3, 20, tuple(1 + 7 * i for i in range(70)),
+                         (5,), ()),
+}
+
+
+def _group_inputs(kernel, case, device):
+    S, M, H, widths, offset, empty = GROUP_CASES[case]
+    dtype = GROUPED[kernel][0]
+    mask, sizes, _ = _agg_inputs(H + len(widths), S, M, H, 1, empty, device)
+    if kernel == "weighted":
+        mask = mask * sizes[:, None, :]
+        mask = mask / mask.sum(2, keepdim=True).clamp_min(1.0)
+    g = torch.Generator().manual_seed(M + H)
+    leaves = [_wire(torch.randn(S, H, P, generator=g).to(device), dtype)
+              for P in widths]
+    leaves = [_misalign(x) if i in offset else x
+              for i, x in enumerate(leaves)]
+    scales = [torch.rand(S, H, generator=g).to(device) * 0.02
+              for _ in widths]
+    return mask, sizes, scales, leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+@pytest.mark.parametrize("kernel", sorted(GROUPED))
+def test_grouped_kernel_matches_plain(cuda, kernel, case):
+    """One launch over every leaf of a group (several past the table's
+    capacity), each leaf against the per-leaf plain version."""
+    mask, sizes, scales, leaves = _group_inputs(kernel, case, cuda)
+    _, run, plain, counter = GROUPED[kernel]
+    counter = getattr(ha, counter)
+    n0 = counter.launches
+    got = run(mask, sizes, scales, leaves)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + -(-len(leaves) // ha.LEAF_CAPACITY)
+    want = plain(mask, sizes, scales, leaves)
+    assert len(got) == len(leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        for m in GROUP_CASES[case][5]:
+            assert bool((g[:, m] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["masked", "decode-f32", "decode-int8"])
+def test_grouped_cluster_split_is_repeatable(cuda, kernel):
+    """At H=4096 the H split spans a thread-block cluster, summed in rank
+    order: two launches on the same inputs give the same bits."""
+    mask, sizes, scales, leaves = _group_inputs(kernel, "large-H", cuda)
+    S, _, H, widths, _, _ = GROUP_CASES["large-H"]
+    assert ha.launch_plan(widths, S, H, kd.sm_count(cuda)).splits > 1
+    run = GROUPED[kernel][1]
+    first = run(mask, sizes, scales, leaves)[0]
+    assert torch.equal(first, run(mask, sizes, scales, leaves)[0])
+
+
+@pytest.mark.cuda
+def test_grouped_wrappers_refuse_mixed_groups(cuda):
+    mask, sizes, scales, leaves = _group_inputs("decode-int8", "lanes", cuda)
+    mixed = [leaves[0], leaves[1].to(torch.bfloat16)]
+    with pytest.raises(ValueError, match="one dtype"):
+        ha.masked_decode_aggregate_leaves_batched_cuda(mask, sizes,
+                                                       scales[:2], mixed)
+    with pytest.raises(ValueError, match="one dtype"):
+        ha.masked_decode_aggregate_leaves_batched(mask, sizes, scales[:2],
+                                                  mixed)
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.masked_decode_aggregate_leaves_batched_cuda(
+            mask, sizes, scales[:2], [leaves[0], leaves[1].cpu()])
+    with pytest.raises(ValueError, match="one device"):
+        ha.masked_decode_aggregate_leaves_batched(
+            mask, sizes, scales[:2], [leaves[0], leaves[1].cpu()])
+    f32 = [x.float() for x in leaves]
+    with pytest.raises(ValueError, match="float32"):
+        ha.masked_aggregate_leaves_batched_cuda(mask, sizes,
+                                                [f32[0], leaves[1]])
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.weighted_aggregate_leaves_batched_cuda(mask, [f32[0],
+                                                         f32[1].cpu()])
+    with pytest.raises(ValueError, match="scales"):
+        ha.masked_decode_aggregate_leaves_batched_cuda(mask, sizes,
+                                                       scales[:1], leaves)
 
 
 FA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),

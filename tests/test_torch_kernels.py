@@ -250,9 +250,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_cpu_dispatch_launches_nothing():
-    counters = (ha.masked_aggregate_batched_cuda,
-                ha.masked_decode_aggregate_batched_cuda,
-                ha.weighted_aggregate_batched_cuda,
+    counters = (ha.masked_aggregate_leaves_batched_cuda,
+                ha.masked_decode_aggregate_leaves_batched_cuda,
+                ha.weighted_aggregate_leaves_batched_cuda,
                 kd.pairwise_sq_dists_cuda)
     before = [c.launches for c in counters]
     ha.masked_aggregate(torch.ones(2, 3), torch.ones(3), torch.ones(3, 4))
