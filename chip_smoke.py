@@ -46,7 +46,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    both error-feedback residuals held by the share of elements that
    differ, within two int8 quanta; the shares and the fraction of
    differing q printed).
-5. Where the time goes: the setup once more (without PyTorch's one-off
+5. Assignment, the paper's methods, on the same world and on round
+   1's IKC cohort (H=50):
+   a. HFEL (``HFELAssigner(sp)``: HFEL-100/300, K=16, 200-step solves):
+      wall time and J, which must be below the J of the geo (nearest
+      edge) assignment of the same cohort, both priced by one 200-step
+      solve; ``assign_batch`` over 4 populations (this one and seeds
+      1-3) must equal 4 separate ``assign`` calls (assignments, J to
+      rel 1e-6);
+   b. D3QN training (Algorithm 5) at the trainer's full width
+      (``D3QNTrainer(sp, H=50, hidden=256)``: M=5, HFEL-100/300
+      targets, ``alloc_steps=120``, ``wave_size=8``), 3 waves (24
+      episodes; the episode count is the only cut): losses finite,
+      params moved, seconds a wave split into target search and
+      updates, episodes/s; then one update wave on the card against the
+      same wave run on the CPU from the same params and minibatches
+      (losses within UPDATE_LOSS_RTOL, every param leaf within
+      UPDATE_ATOL);
+   c. one ``HFLFramework`` round each with ``assigner="hfel"`` and
+      ``assigner="drl"`` (the trained params), kernels on and the
+      clustering's labels injected: round 1's cohort again, K1 6
+      launches a round and no K2; ``assign_latency_s`` of geo, DRL and
+      HFEL on that cohort.
+6. Where the time goes: the setup once more (without PyTorch's one-off
    imports) and a fourth uncompressed round under ``torch.profiler``:
    device busy time against wall time, and the kernels that took the
    most.
@@ -55,7 +77,7 @@ The HFL frameworks are then released, and the dense decoder's serving
 path runs (chatglm3-6b, f32 weights drawn on the card from a seed, bf16
 compute):
 
-6. Flash attention: the kernel against its plain version at the
+7. Flash attention: the kernel against its plain version at the
    prefill's shape (B=2, S=4096, 32 q heads, 2 KV heads, d=128, bf16)
    and at edge cases (ragged S, windows, head dims 16/48/80, MHA, f32,
    a layout that TMA cannot read, a 16 384-token sequence), each on the
@@ -63,16 +85,16 @@ compute):
    prefill's shape against the bound, the kernel's own floor (1.5x the
    bound: P V runs twice, P's bf16 head and remainder), the plain version
    and PyTorch's SDPA.
-7. A': two layers at full width in f32: the prefill through the kernel
+8. A': two layers at full width in f32: the prefill through the kernel
    (2 launches, fma) against the plain prefill within LM_F32_TOL of the
    largest logit, and the serving loop's teacher-forced decode logits
    against the kernel prefill of the same prompt, within the same.
-8. A: all 28 layers, bf16: the prefill through the kernel (28
+9. A: all 28 layers, bf16: the prefill through the kernel (28
    launches, every one on the wgmma kernel) against the plain prefill (0), by the largest difference
    relative to the largest logit and by the share of positions whose
    argmax agrees (limits LM_BF16_REL, LM_BF16_AGREE); both against an
    f32 plain prefill, printed.
-9. B: the ``serve_lm`` loop on the full model (batch 8, prompt 32, 64
+10. B: the ``serve_lm`` loop on the full model (batch 8, prompt 32, 64
    greedy tokens; no kernel launch), its tokens in range, its
    teacher-forced logits against the kernel prefill of the prompt (the
    same limits as A); prefill and decode seconds and tokens/s. Then one
@@ -112,6 +134,13 @@ PARAM_TOL = 1e-4        # kernel vs plain-matmul round: max |Δparam|
 # ~10 devices an edge, up to 5 x 10 x 1e-3 = 5e-2 of the elements can
 # see a flip. A wrong aggregation moves nearly all of them.
 FLIP_ATOL, FLIP_SHARE = 1e-5, 5e-2
+# one D3QN update wave (8 Adam steps, hidden 256) on the card against the
+# same wave on the CPU: both f32, summed in other orders. Two H100 runs
+# of this check read a max param difference of 1.19e-7 (no param off by
+# more than 1e-5) and losses equal to ~1e-7 relative; each leaf is held
+# to 1e-5, the card test's limit at hidden 16, and a wrong gradient in
+# any leaf (v_head's 257 elements included) moves it by ~lr = 1e-3.
+UPDATE_LOSS_RTOL, UPDATE_ATOL = 1e-4, 1e-5
 F32_FLOPS = 67e12       # H100/H200 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12     # H100/H200 SXM bf16 tensor-core rate, dense
 # flash attention vs its plain version: f32 to 2e-5 (the reference's own
@@ -528,6 +557,134 @@ def run_rounds(torch, fw, rounds, label):
     return recs
 
 
+def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
+                     geo_cohort, zero_counts, read_counts):
+    """Phase 5: HFEL, D3QN training and the hfel/drl framework rounds."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.assignment.hfel import (HFELAssigner,
+                                                  total_objective)
+    from repro_torch.core.framework import HFLFramework
+    from repro_torch.drl.train import D3QNTrainer
+    from repro_torch.utils import tree_leaves, tree_map
+
+    sched, geo_assign = geo_cohort
+    # ---- a. HFEL on round 1's cohort
+    hfel = HFELAssigner(fw.sp)
+    (a_h, J_h), secs = timed(torch, lambda: hfel.assign(
+        pop, sched, np.random.default_rng(0)))
+    J_geo, _, _ = total_objective(fw.sp, pop, sched, geo_assign, 200)
+    J_hr, _, _ = total_objective(fw.sp, pop, sched, a_h, 200)
+    moved = int((a_h != geo_assign).sum())
+    print(f"HFEL-{hfel.n_transfer}/{hfel.n_exchange} K={hfel.n_candidates} "
+          f"alloc_steps={hfel.alloc_steps} H={len(sched)} M={sp.n_edges}: "
+          f"{secs:.3f} s, J={J_h:.6f} (one 200-step solve: {J_hr:.6f}); "
+          f"geo J={J_geo:.6f}; {moved} devices not on their nearest edge")
+    check(math.isfinite(J_h) and J_hr < J_geo,
+          f"HFEL J {J_hr} is not below the geo assignment's {J_geo}")
+    pops = [pop] + [cm.sample_population(sp, seed=s) for s in (1, 2, 3)]
+    (A, J), secs_b = timed(torch, lambda: hfel.assign_batch(
+        cm.PopulationBatch.stack(pops), sched, [0, 1, 2, 3]))
+    t0 = time.perf_counter()
+    singles = [(a_h, J_h)] + [hfel.assign(pops[e], sched,
+                                          np.random.default_rng(e))
+                              for e in (1, 2, 3)]
+    secs_s = time.perf_counter() - t0 + secs
+    for e, (a, j) in enumerate(singles):
+        check(np.array_equal(A[e], a) and abs(J[e] - j) <= 1e-6 * abs(j),
+              f"HFEL assign_batch population {e} differs from assign: "
+              f"J {J[e]} vs {j}, {int((A[e] != a).sum())} devices")
+    dJ = max(abs(float(J[e]) - j) for e, (_, j) in enumerate(singles))
+    print(f"HFEL assign_batch over 4 populations: {secs_b:.3f} s, equal to "
+          f"4 assign calls ({secs_s:.3f} s; max |J diff| {dJ:.3e}); "
+          f"J={np.round(J, 6).tolist()}")
+
+    # ---- b. D3QN training, 3 waves at full width
+    torch.cuda.reset_peak_memory_stats()
+    tr = D3QNTrainer(sp, H=50, hidden=256, alloc_steps=120, wave_size=8)
+    split = {"search": 0.0, "update": 0.0}
+
+    def timing(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[name] += time.perf_counter() - t
+            return out
+        return wrapped
+    tr.hfel.assign_batch = timing("search", tr.hfel.assign_batch)
+    tr._update_wave = timing("update", tr._update_wave)
+    p0 = [x.clone() for x in tree_leaves(tr.params)]
+    walls, losses = [], []
+    for w in range(3):
+        (rets, loss), secs = timed(torch, tr.run_wave)
+        walls.append(secs)
+        losses.append(loss.cpu().numpy())
+        print(f"D3QN wave {w + 1}: {secs:.3f} s, returns "
+              f"{rets.astype(int).tolist()}, td losses "
+              f"{np.round(losses[-1], 4).tolist()}")
+    n_ep = 3 * tr.wave_size
+    print(f"D3QN H={tr.H} hidden={tr.hidden} M={sp.n_edges} HFEL-"
+          f"{tr.hfel_transfer}/{tr.hfel_exchange} alloc_steps="
+          f"{tr.alloc_steps} wave_size={tr.wave_size}: {sum(walls) / 3:.3f} "
+          f"s a wave (target search {split['search'] / 3:.3f} s, updates "
+          f"{split['update'] / 3:.3f} s, the rest "
+          f"{(sum(walls) - split['search'] - split['update']) / 3:.3f} s), "
+          f"{n_ep / sum(walls):.3f} episodes/s, {tr.step} updates, peak "
+          f"memory {peak_gb(torch)}")
+    check(tr.episode == n_ep and tr.step == n_ep, "D3QN: episode/step count")
+    check(all(np.isfinite(x).all() for x in losses), "D3QN: loss not finite")
+    dp = max(float((a - b).abs().max())
+             for a, b in zip(tree_leaves(tr.params), p0))
+    check(dp > 0 and all(bool(torch.isfinite(x).all())
+                         for x in tree_leaves(tr.params)),
+          f"D3QN params did not move or are not finite (max move {dp})")
+    # one update wave, card against CPU, from the same state
+    mbs = tr.replay.sample_updates(np.random.default_rng(1), tr.wave_size,
+                                   tr.minibatch)
+
+    def cpu(tree):
+        return tree_map(lambda v: v.cpu() if torch.is_tensor(v) else v, tree)
+    (pg, _, _, _), lg = tr._update_wave(tr.params, tr.opt_state,
+                                        tr.target_params, tr.step, *mbs)
+    (pc, _, _, _), lc = tr._update_wave(
+        cpu(tr.params), cpu(tr.opt_state), cpu(tr.target_params), tr.step,
+        *cpu(mbs))
+    lg, lc = lg.cpu().numpy(), lc.numpy()
+    names = [".".join(k) for k in _paths(pg)]
+    d = [float((a.cpu() - b).abs().max())
+         for a, b in zip(tree_leaves(pg), tree_leaves(pc))]
+    worst = int(np.argmax(d))
+    lrel = float(np.abs(lg - lc).max() / np.abs(lc).max())
+    print(f"D3QN update wave card vs CPU: losses rel {lrel:.3e} (limit "
+          f"{UPDATE_LOSS_RTOL:g}), max param difference {d[worst]:.3e} in "
+          f"{names[worst]} (limit {UPDATE_ATOL:g} in every one of "
+          f"{len(d)} leaves)")
+    check(lrel <= UPDATE_LOSS_RTOL and max(d) <= UPDATE_ATOL,
+          "D3QN update wave: card and CPU differ beyond the limits")
+
+    # ---- c. framework rounds with the paper's assigners
+    lat = {"geo": geo_rec["assign_latency_s"]}
+    for assigner in ("hfel", "drl"):
+        zero_counts()
+        fa = HFLFramework(sp, pop, fed, dataclasses.replace(
+            cfg, assigner=assigner), labels=labels,
+            drl_params=tr.params if assigner == "drl" else None)
+        log = record_assignments(fa)
+        rec = run_rounds(torch, fa, (1,), assigner)[0]
+        read_counts(f"{assigner} round", {"masked_aggregate": sp.Q + 1})
+        check(np.array_equal(log[0][0], sched),
+              f"{assigner} round: another cohort than the geo round's")
+        lat[assigner] = rec["assign_latency_s"]
+        print(f"{assigner} round 1: {int((log[0][1] != geo_assign).sum())} "
+              f"of {len(sched)} devices off their nearest edge; T_i "
+              f"{rec['T_i']:.4f} (geo {geo_rec['T_i']:.4f}), E_i "
+              f"{rec['E_i']:.4f} (geo {geo_rec['E_i']:.4f})")
+        del fa
+    print(f"assign_latency_s on round 1's cohort (H={len(sched)}): "
+          + ", ".join(f"{k} {v:.6f}" for k, v in lat.items()))
+
+
 def attention_pairs(S: int, causal: bool, window: int) -> int:
     """Unmasked (query, key) pairs of one (batch, head): the work these
     inputs need."""
@@ -635,7 +792,7 @@ def peak_gb(torch) -> str:
 
 
 def lm_phases(torch, rate, zero_counts, read_counts):
-    """Phases 6-9: K5, then chatglm3-6b's prefill and serving paths."""
+    """Phases 7-10: K5, then chatglm3-6b's prefill and serving paths."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve_lm
@@ -790,6 +947,17 @@ def profiled(torch, label, fn):
           f"({busy / wall:.1%}); top device time: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top))
+
+
+def _paths(tree, prefix=()):
+    """Key paths of a params tree, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _paths(v, prefix + (str(i),))]
+    return [prefix]
 
 
 def _leaves(tree):
@@ -1031,6 +1199,11 @@ def main() -> int:
               f"elements differ")
         check(dmax <= 2 * quantum, f"int8 {what} differ by {dmax}")
     del plain8, sent
+
+    # ------------------------------------------ assignment (phase 5)
+    torch.cuda.empty_cache()
+    assignment_phase(torch, sp, pop, fed, cfg, fw, labels, recs[0],
+                     assigned[0], zero_counts, read_counts)
 
     # ------------------------------------------------ where time goes
     # setup again: the first construction also paid PyTorch's one-off

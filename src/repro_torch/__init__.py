@@ -10,11 +10,13 @@ Module map (port -> reference):
 
 =============================================  =================================================
 ``repro_torch.utils``                          ``repro.utils`` (tree_bytes, tree_flatten_to_vector,
-                                               dbm_to_watt, db_to_linear)
+                                               dbm_to_watt, db_to_linear; tree_map,
+                                               tree_leaves for nested dicts)
 ``repro_torch.convert``                        (new) numpy <-> port parameter trees
 ``repro_torch.data.synthetic``                 ``repro.data.synthetic`` (make_dataset; numpy copy)
 ``repro_torch.data.partition``                 ``repro.data.partition`` (numpy copy)
-``repro_torch.core.cost_model``                ``repro.core.cost_model`` (eqs. 4-14, no traces)
+``repro_torch.core.cost_model``                ``repro.core.cost_model`` (eqs. 4-14, PopulationBatch;
+                                               no availability traces)
 ``repro_torch.models.layers``                  ``repro.models.layers`` (he_normal, dense/embed
                                                init, rmsnorm, RoPE, SwiGLU)
 ``repro_torch.models.cnn``                     ``repro.models.cnn``
@@ -23,7 +25,7 @@ Module map (port -> reference):
 ``repro_torch.configs.<arch>``                 ``repro.configs.<arch>`` for chatglm3_6b,
                                                mistral_nemo_12b, internvl2_26b,
                                                musicgen_medium, llama3_405b,
-                                               mistral_large_123b
+                                               mistral_large_123b, hfl_cnn
 ``repro_torch.configs.registry``               ``repro.configs.registry`` (get_config,
                                                get_smoke_config, variant_for_shape,
                                                get_hfl_spec: hfl-cnn)
@@ -37,13 +39,21 @@ Module map (port -> reference):
 ``repro_torch.core.local_train``               ``repro.core.local_train``
 ``repro_torch.core.compression``               ``repro.core.compression`` (codecs, error feedback)
 ``repro_torch.core.hfl``                       ``repro.core.hfl`` (Algorithm 1, with codecs)
-``repro_torch.core.resource``                  ``repro.core.resource`` (problem 27)
+``repro_torch.core.resource``                  ``repro.core.resource`` (problem 27, warm starts,
+                                               trial layouts)
 ``repro_torch.core.clustering``                ``repro.core.clustering``
 ``repro_torch.core.scheduling``                ``repro.core.scheduling`` (device_clustering;
                                                vectorized schedulers, numpy copies)
 ``repro_torch.core.assignment.geo``            ``repro.core.assignment.geo`` (GeoAssigner)
+``repro_torch.core.assignment.hfel``           ``repro.core.assignment.hfel`` (host engines:
+                                               serial, batched, assign_batch)
+``repro_torch.core.assignment.drl``            ``repro.core.assignment.drl`` (DRLAssigner)
+``repro_torch.optim``                          ``repro.optim`` (sgd, adam, adafactor,
+                                               clip_by_global_norm, schedules)
+``repro_torch.drl``                            ``repro.drl`` (bilstm, d3qn, replay, train:
+                                               Algorithm 5)
 ``repro_torch.core.framework``                 ``repro.core.framework`` (fused and sequential
-                                               engines, codecs; geo assignment)
+                                               engines, codecs; geo/hfel/drl assignment)
 ``repro_torch.kernels.hier_agg.ops``           ``repro.kernels.hier_agg`` masked_aggregate,
                                                weighted_aggregate, masked_decode_aggregate
 ``repro_torch.kernels.kmeans_dist.ops``        ``repro.kernels.kmeans_dist`` pairwise_sq_dists

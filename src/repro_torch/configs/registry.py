@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 Port of ``repro.configs.registry``. The attention-only decoders (dense,
-vlm, audio) resolve to their ``CONFIG`` / ``smoke_config()``; the MoE and
-SSM/hybrid archs raise ``NotImplementedError`` until their layers are
-ported (ROADMAP Queue 1 item 8), and any other name is unknown.
+vlm, audio) and the paper CNN (``hfl-cnn``) resolve to their ``CONFIG``
+/ ``smoke_config()``; the MoE and SSM/hybrid archs raise
+``NotImplementedError`` until their layers are ported (ROADMAP Queue 1
+item 8), and any other name is unknown.
 ``get_hfl_spec`` resolves the paper CNN (``hfl-cnn``) only.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ _MODULES = {
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "hfl-cnn": "repro_torch.configs.hfl_cnn",
 }
 _UNPORTED = ("jamba-1.5-large-398b", "mamba2-2.7b", "llama4-scout-17b-a16e",
              "qwen3-moe-235b-a22b")

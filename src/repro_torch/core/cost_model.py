@@ -10,6 +10,7 @@ order and cast to float32 tensors, so both packages see the same world.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -65,6 +66,65 @@ class Population:
     def n_edges(self) -> int:
         return self.g.shape[1]
 
+    def features(self) -> torch.Tensor:
+        """(N, M+3) raw per-device feature vectors (ḡ^1..ḡ^M, u, D, p)."""
+        return torch.cat([self.g, self.u[:, None], self.D[:, None],
+                          self.p[:, None]], dim=1)
+
+
+@dataclasses.dataclass
+class PopulationBatch:
+    """E stacked IoT populations: the episode axis of the batched D3QN
+    trainer (Alg. 5) and of multi-population assignment searches. Every
+    tensor carries a leading population axis; population ``e`` is
+    bitwise equal to ``sample_population(sp, seeds[e])`` for the seeds
+    it was built from."""
+    u: torch.Tensor          # (E, N)
+    D: torch.Tensor          # (E, N)
+    p: torch.Tensor          # (E, N)
+    f_max: torch.Tensor      # (E, N)
+    g: torch.Tensor          # (E, N, M)
+    g_cloud: torch.Tensor    # (E, M)
+    B_m: torch.Tensor        # (E, M)
+    dev_pos: np.ndarray      # (E, N, 2) km
+    edge_pos: np.ndarray     # (E, M, 2) km
+
+    @property
+    def n_pops(self) -> int:
+        return self.g.shape[0]
+
+    @property
+    def n_devices(self) -> int:
+        return self.g.shape[1]
+
+    @property
+    def n_edges(self) -> int:
+        return self.g.shape[2]
+
+    def pop(self, e: int) -> Population:
+        """Population ``e`` as a plain (view-sharing) ``Population``."""
+        return Population(u=self.u[e], D=self.D[e], p=self.p[e],
+                          f_max=self.f_max[e], g=self.g[e],
+                          g_cloud=self.g_cloud[e], B_m=self.B_m[e],
+                          dev_pos=self.dev_pos[e], edge_pos=self.edge_pos[e])
+
+    def populations(self) -> list:
+        return [self.pop(e) for e in range(self.n_pops)]
+
+    def features(self) -> torch.Tensor:
+        """(E, N, M+3) stacked raw per-device feature vectors."""
+        return torch.cat([self.g, self.u[..., None], self.D[..., None],
+                          self.p[..., None]], dim=-1)
+
+    @classmethod
+    def stack(cls, pops) -> "PopulationBatch":
+        """Stack same-shape ``Population``s along a new leading axis."""
+        pops = list(pops)
+        return cls(**{
+            f.name: (np.stack if f.name.endswith("_pos") else torch.stack)(
+                [getattr(p, f.name) for p in pops])
+            for f in dataclasses.fields(cls)})
+
 
 def _gain(rng: np.random.Generator, dist_km: np.ndarray, shadow_db: float):
     d = np.maximum(dist_km, 0.01)
@@ -74,8 +134,10 @@ def _gain(rng: np.random.Generator, dist_km: np.ndarray, shadow_db: float):
 
 
 def sample_population(sp: SystemParams, seed: int = 0,
+                      d_range: Optional[tuple] = None,
                       device="cuda") -> Population:
-    """Devices and edges uniform in the square; cloud at the centre."""
+    """Devices and edges uniform in the square; cloud at the centre.
+    ``d_range`` overrides ``sp.d_range`` for the dataset sizes D_n."""
     dev = resolve_device(device)
 
     def f32(a):
@@ -88,16 +150,36 @@ def sample_population(sp: SystemParams, seed: int = 0,
     cloud_pos = np.array([sp.area_km / 2, sp.area_km / 2])
     d_ne = np.linalg.norm(dev_pos[:, None] - edge_pos[None], axis=-1)
     d_mc = np.linalg.norm(edge_pos - cloud_pos, axis=-1)
+    dr = d_range or sp.d_range
     return Population(
         u=f32(rng.uniform(*sp.u_range, N)),
-        D=f32(rng.integers(sp.d_range[0], sp.d_range[1] + 1, N)
-              .astype(np.float64)),
+        D=f32(rng.integers(dr[0], dr[1] + 1, N).astype(np.float64)),
         p=f32(dbm_to_watt(rng.uniform(*sp.p_dbm_range, N))),
         f_max=torch.full((N,), sp.f_max, dtype=torch.float32, device=dev),
         g=f32(_gain(rng, d_ne, sp.shadow_db)),
         g_cloud=f32(_gain(rng, d_mc, sp.shadow_db)),
         B_m=f32(rng.uniform(*sp.edge_bw_range, M)),
         dev_pos=dev_pos, edge_pos=edge_pos)
+
+
+def sample_population_batch(sp: SystemParams, n_pops: Optional[int] = None,
+                            seed: int = 0, seeds=None,
+                            d_range: Optional[tuple] = None,
+                            device="cuda") -> PopulationBatch:
+    """E Table-I populations as one stacked ``PopulationBatch``.
+
+    ``seeds`` gives explicit per-population seeds; otherwise ``n_pops``
+    seeds are derived from ``seed`` through ``np.random.SeedSequence``,
+    as the reference derives them. Population ``e`` is
+    ``sample_population(sp, seeds[e], d_range)``.
+    """
+    if seeds is None:
+        if n_pops is None:
+            raise ValueError("sample_population_batch needs n_pops or seeds")
+        seeds = np.random.SeedSequence(seed).generate_state(n_pops)
+    return PopulationBatch.stack(
+        sample_population(sp, seed=int(s), d_range=d_range, device=device)
+        for s in seeds)
 
 
 # ------------------------------------------------------- eqs (4)-(8)

@@ -3,7 +3,7 @@
 
 Per global iteration i:
   1. schedule H devices (IKC / VKC / FedAvg),
-  2. assign them to edges (geographic),
+  2. assign them to edges (D3QN / HFEL / geographic),
   3. per-edge convex resource allocation (bandwidth + CPU frequency),
   4. HFL training (Algorithm 1) on the scheduled cohort,
   5. evaluate; stop when the target accuracy is reached.
@@ -26,7 +26,11 @@ the port draws from a ``torch.Generator`` seeded with ``cfg.seed``, and
 a caller can inject the outcome instead: ``init_params`` (the model's
 initial weights), ``labels`` (the Algorithm-2 clustering) and
 ``codec_noise`` (round index -> int8 rounding-noise source; the default
-is ``compression.round_noise``, stateless per round).
+is ``compression.round_noise``, stateless per round). ``assigner="drl"``
+needs the trained agent's parameters (``drl_params``: the port's
+tensors or the reference's arrays); ``assigner="hfel"`` searches with
+the framework's own rng, so its proposals advance the Generator the
+next round's scheduler draws from, as in the reference.
 
 Every round record carries ``seconds``, the wall time of its phases
 (schedule, assign, allocate, train, aggregate, eval), each ending in a
@@ -48,7 +52,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import compression as comp
 from repro_torch.core import cost_model as cm
 from repro_torch.core import resource as ra
-from repro_torch.core.assignment import GeoAssigner
+from repro_torch.core.assignment import (DRLAssigner, GeoAssigner,
+                                         HFELAssigner)
 from repro_torch.core.clustering import adjusted_rand_index
 from repro_torch.core.hfl import hfl_global_iteration_core, pad_device_data
 from repro_torch.core.scheduling import (FedAvgScheduler, IKCScheduler,
@@ -110,7 +115,7 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
 class FrameworkConfig:
     arch: str = "hfl-cnn"           # model payload (configs.registry id)
     scheduler: str = "ikc"          # ikc | vkc | fedavg
-    assigner: str = "geo"           # geo (drl and hfel are not ported yet)
+    assigner: str = "geo"           # drl | hfel | geo
     H: int = 50
     K: int = 10
     lr: float = 0.01
@@ -121,6 +126,8 @@ class FrameworkConfig:
     use_kernel: bool = False        # kmeans_dist kernel for Algorithm 2
     agg_kernel: bool = False        # hier_agg kernel for eqs. (2)-(3)
     engine: str = "fused"           # fused | sequential (per-edge oracle)
+    hfel_search: str = "batched"    # batched | serial (assigner="hfel")
+    hfel_candidates: int = 16       # K moves per batched HFEL round
     compression: comp.CompressionConfig = dataclasses.field(
         default_factory=comp.CompressionConfig)   # uplink update codec
     device: str = "cuda"            # "cpu" must be asked for
@@ -132,11 +139,10 @@ class FrameworkConfig:
         if self.compression.active and self.engine == "sequential":
             raise ValueError("compression requires engine='fused' (the "
                              "sequential oracle ships raw payloads)")
-        if self.assigner in ("drl", "hfel"):
-            raise NotImplementedError(
-                f"assigner={self.assigner!r} is not ported yet (ROADMAP.md)")
-        if self.assigner != "geo":
+        if self.assigner not in ("drl", "hfel", "geo"):
             raise ValueError(f"unknown assigner {self.assigner!r}")
+        if self.hfel_search not in ("batched", "serial"):
+            raise ValueError(f"unknown hfel_search {self.hfel_search!r}")
         if self.scheduler not in ("ikc", "vkc", "fedavg"):
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
 
@@ -147,7 +153,8 @@ class HFLFramework:
                  init_params: Optional[Mapping] = None,
                  labels: Optional[np.ndarray] = None,
                  codec_noise: Optional[
-                     Callable[[int], comp.NoiseSource]] = None):
+                     Callable[[int], comp.NoiseSource]] = None,
+                 drl_params: Optional[Mapping] = None):
         self.pop, self.fed, self.cfg = pop, fed, cfg
         self.device = resolve_device(cfg.device)
         self.rng = np.random.default_rng(cfg.seed)
@@ -182,7 +189,7 @@ class HFLFramework:
         self.clustering_stats: Dict = {}
         self.setup_seconds: Dict[str, float] = {}
         self._setup_scheduler(labels)
-        self.assigner = GeoAssigner(self.sp)
+        self._setup_assigner(drl_params)
         self.history: List[Dict] = []
 
     # ------------------------------------------------------------ setup
@@ -229,6 +236,21 @@ class HFLFramework:
             "ari": adjusted_rand_index(labels, fed.majority_class),
             "delay_s": delay, "energy_j": energy,
             "aux_bits": float(aux_bits)}
+
+    def _setup_assigner(self, drl_params):
+        a = self.cfg.assigner
+        if a == "drl":
+            if drl_params is None:
+                raise ValueError("assigner='drl' needs the trained D3QN "
+                                 "params (drl_params=)")
+            self.assigner = DRLAssigner(
+                self.sp, params_from_numpy(drl_params, self.device))
+        elif a == "hfel":
+            self.assigner = HFELAssigner(
+                self.sp, search=self.cfg.hfel_search,
+                n_candidates=self.cfg.hfel_candidates)
+        else:
+            self.assigner = GeoAssigner(self.sp)
 
     # ------------------------------------------------------------- round
 

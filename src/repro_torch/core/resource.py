@@ -12,6 +12,13 @@ Adam, and the hard-max objective of the final iterate. The solver works
 on a leading edge axis directly — the M per-edge problems are
 independent, so the gradient of their summed objectives from
 ``torch.autograd`` is every edge's own gradient at once.
+
+``allocate_batch_warm`` starts the solver from caller-provided iterates
+(HFEL's incumbent per-edge solutions, where a trial edge differs by one
+moved device) and returns the final ones; ``flatten_trials`` /
+``unflatten_trials`` map HFEL's trial-major ``(K, E, ...)`` candidate
+batches onto that flat edge axis, so all K·E trial edges solve in one
+call.
 """
 from __future__ import annotations
 
@@ -39,11 +46,15 @@ def _edge_terms(sp: SystemParams, u, D, p, g, b, f, mask):
 
 
 def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
-                   steps: int) -> AllocResult:
-    """Solve (27) for a batch of edges from the cold start.
+                   steps: int, theta0=None):
+    """Solve (27) for a batch of edges.
 
     u, D, p, g, mask: (E, n_slots), mask bool (which slots hold real
-    devices); B_m: (E,).
+    devices); B_m: (E,). ``theta0``: optional (tb, tf) reparameterised
+    warm start, (E, n_slots) each; None is the cold start (zeros, ones).
+    Adam's moments start at zero and the temperature runs its schedule
+    over ``steps`` either way. Returns (AllocResult, (tb, tf)) with the
+    final iterates, ready to seed the next warm solve.
     """
     any_dev = torch.any(mask, dim=-1)
     neg = -1e9
@@ -69,7 +80,10 @@ def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
         t, _ = _edge_terms(sp, u, D, p, g, b, f, mask)
         return torch.amax(t, dim=-1) + 1e-12
 
-    theta = [torch.zeros_like(u), torch.full_like(u, 1.0)]  # f ~0.73 f_max
+    if theta0 is None:
+        theta = [torch.zeros_like(u), torch.full_like(u, 1.0)]  # f ~0.73 f_max
+    else:
+        theta = [t.to(u.dtype) for t in theta0]
 
     # Adam, with the scalar schedule computed in f32 as the reference does
     lr, b1, b2, eps = 0.08, 0.9, 0.999, 1e-8
@@ -99,8 +113,9 @@ def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
         T_edge = sp.Q * torch.amax(t, dim=-1)
         E_edge = sp.Q * torch.sum(e, dim=-1)
         obj = torch.where(any_dev, E_edge + sp.lam * T_edge, 0.0)
-        return AllocResult(b, f, torch.where(any_dev, T_edge, 0.0),
-                           torch.where(any_dev, E_edge, 0.0), obj)
+        res = AllocResult(b, f, torch.where(any_dev, T_edge, 0.0),
+                          torch.where(any_dev, E_edge, 0.0), obj)
+    return res, (theta[0], theta[1])
 
 
 def allocate(sp: SystemParams, u, D, p, g, B_m, mask,
@@ -109,7 +124,7 @@ def allocate(sp: SystemParams, u, D, p, g, B_m, mask,
     res = _allocate_core(
         sp, u[None], D[None], p[None], g[None],
         torch.as_tensor(B_m, dtype=u.dtype, device=u.device).reshape(1),
-        mask[None], steps)
+        mask[None], steps)[0]
     return AllocResult(*(a[0] for a in res))
 
 
@@ -120,7 +135,64 @@ def allocate_batch(sp: SystemParams, u, D, p, g, B_m, mask,
     u, D, p, g, mask: (M, n_slots); B_m: (M,). The result's fields carry
     the leading edge axis: b, f (M, n_slots); T_edge, E_edge, obj (M,).
     """
-    return _allocate_core(sp, u, D, p, g, B_m, mask, steps)
+    return _allocate_core(sp, u, D, p, g, B_m, mask, steps)[0]
+
+
+def allocate_batch_warm(sp: SystemParams, u, D, p, g, B_m, mask, tb0, tf0,
+                        steps: int = 60):
+    """``allocate_batch`` warm-started from (tb0, tf0), (M, n_slots)
+    reparameterised (bandwidth-logit, frequency) iterates of a nearby
+    problem; neutral iterates (zeros, ones) make it the cold solve.
+    Returns (AllocResult, (tb, tf)) with the final iterates."""
+    return _allocate_core(sp, u, D, p, g, B_m, mask, steps, (tb0, tf0))
+
+
+def flatten_trials(u, D, p, g, B_m, mask, *extras):
+    """Trial-major allocation inputs -> ``allocate_batch``'s flat layout.
+
+    u, D, p, g, mask (K, E, n_slots) and B_m (K, E), for K candidate
+    moves of E affected edges each, become (K*E, ...) so all K·E edge
+    problems solve in one call; row ``k*E + e`` is trial k's e-th edge.
+    ``extras`` (e.g. warm-start iterates) are flattened the same way and
+    appended. Works on tensors and numpy arrays alike.
+    """
+    K, E = mask.shape[:2]
+
+    def flat(a):
+        return a.reshape((K * E,) + tuple(a.shape[2:]))
+
+    return (flat(u), flat(D), flat(p), flat(g), flat(B_m), flat(mask),
+            *(flat(x) for x in extras))
+
+
+def unflatten_trials(res: AllocResult, n_trials: int, n_edges: int
+                     ) -> AllocResult:
+    """Inverse of ``flatten_trials`` on every result field: flat
+    ``(n_trials*n_edges, ...)`` -> ``(n_trials, n_edges, ...)``."""
+    return AllocResult(*(a.reshape((n_trials, n_edges) + tuple(a.shape[1:]))
+                         for a in res))
+
+
+def gather_edge_inputs(pop, sched, assign):
+    """The (M, H) per-edge allocation inputs of a scheduled cohort.
+
+    sched: (H,) int64 device indices; assign: (H,) int64 edge id per
+    scheduled device. Returns (u, D, p, g, B_m, mask) for
+    ``allocate_batch``: device features broadcast over the edge axis,
+    gains transposed to (M, H), mask[m, h] = (assign[h] == m).
+    """
+    M = pop.n_edges
+    H = sched.shape[0]
+    mask = assign[None, :] == torch.arange(M, device=assign.device)[:, None]
+    return (pop.u[sched].expand(M, H), pop.D[sched].expand(M, H),
+            pop.p[sched].expand(M, H), pop.g[sched].T, pop.B_m, mask)
+
+
+def allocate_all_edges(sp: SystemParams, pop, sched, assign,
+                       steps: int = 300) -> AllocResult:
+    """Solve (27) for every edge of a population in one batched call."""
+    return allocate_batch(sp, *gather_edge_inputs(pop, sched, assign),
+                          steps=steps)
 
 
 def select_device_allocation(res: AllocResult, assign):
@@ -128,3 +200,22 @@ def select_device_allocation(res: AllocResult, assign):
     (M, H) allocation."""
     h_idx = torch.arange(assign.shape[0], device=assign.device)
     return res.b[assign, h_idx], res.f[assign, h_idx]
+
+
+def allocate_uniform(sp: SystemParams, u, D, p, g, B_m, mask) -> AllocResult:
+    """Baseline: equal bandwidth split, f = f_max (one edge, (n_slots,)
+    inputs and a scalar B_m)."""
+    n_act = torch.clamp_min(mask.sum(), 1)
+    b = torch.where(mask, B_m / n_act, 1.0)
+    f = torch.full_like(u, sp.f_max)
+    t, e = _edge_terms(sp, u, D, p, g, b, f, mask)
+    T_edge = sp.Q * torch.amax(t)
+    E_edge = sp.Q * torch.sum(e)
+    return AllocResult(b, f, T_edge, E_edge, E_edge + sp.lam * T_edge)
+
+
+def edge_objective_with_cloud(sp: SystemParams, res: AllocResult,
+                              g_cloud_m) -> torch.Tensor:
+    """E_m + λ T_m including the constant cloud-uplink terms (13),(14)."""
+    T_cl, E_cl = cm.cloud_cost(sp, g_cloud_m)
+    return (res.E_edge + E_cl) + sp.lam * (res.T_edge + T_cl)

@@ -23,6 +23,27 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts/lists/tuples (``rest``:
+    trees of the same structure, their leaves passed alongside)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts/lists in JAX's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def tree_bytes(params: Params) -> int:
     return sum(x.numel() * x.element_size() for x in params.values())
 

@@ -33,6 +33,7 @@ from repro_torch.core import compression as tcomp
 from repro_torch.core.framework import FrameworkConfig as TConfig
 from repro_torch.core.framework import HFLFramework as TFramework
 from repro_torch.core.hfl import hfl_global_iteration_core, pad_device_data
+from test_torch_framework import one_torch_thread  # noqa: F401 (autouse)
 
 CODECS = ("bf16_delta", "int8", "topk")
 # the paper CNN's four leaves, by size (conv1, conv2, fc1, fc2)

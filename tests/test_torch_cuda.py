@@ -11,6 +11,14 @@ decode-aggregate kernel folds the scale into its panel, ``(w·sc)·q``,
 where the plain version computes ``w·(sc·q)``; int8 and bf16 widen to
 f32 exactly, so the same 1e-5 holds for every wire dtype.
 
+The paper's assignment methods on the card against the port on the CPU
+(no kernel of their own: the allocator, the accept pass and the D3QN
+run as PyTorch ops): the warm allocator at 30 Adam steps to rtol 1e-4
+(the CPU parity figure); HFEL ``assign_batch`` equal to per-population
+``assign`` on the card (assignments equal, J to rel 1e-6, as the
+reference holds it); one D3QN update wave (5 Adam steps, hidden 16) to
+atol 1e-5 in the params.
+
 Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
 before the dot, the plain version divides the scores: the reference's
 own figure). bf16: both sides compute in f32 from the same bf16 inputs
@@ -24,6 +32,11 @@ import pytest
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cost_model as tcm
+from repro_torch.core import resource as tra
+from repro_torch.core.assignment.hfel import HFELAssigner
+from repro_torch.drl.train import D3QNTrainer
+from repro_torch.utils import tree_leaves, tree_map
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.hier_agg import ops as ha
 from repro_torch.kernels.kmeans_dist import ops as kd
@@ -426,3 +439,63 @@ def test_attn_forward_kernel_launches_and_skips_plain(cuda, monkeypatch):
     assert fa.flash_attention_cuda.launches_by_path["fma"] == fma0 + 1
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_allocate_batch_warm_card_matches_cpu(cuda):
+    sp = tcm.SystemParams()
+    pop = tcm.sample_population(sp, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    H, M = 50, sp.n_edges
+    sched = torch.from_numpy(rng.choice(sp.n_devices, H, replace=False))
+    assign = torch.from_numpy(rng.integers(0, M, H))
+    ins = tra.gather_edge_inputs(pop, sched, assign)
+    warm = (torch.from_numpy(rng.normal(0, 1, (M, H)).astype(np.float32)),
+            torch.from_numpy(rng.normal(1, 1, (M, H)).astype(np.float32)))
+    for tb0, tf0 in ((torch.zeros(M, H), torch.ones(M, H)), warm):
+        rc, (tbc, _) = tra.allocate_batch_warm(sp, *ins, tb0, tf0, steps=30)
+        rg, (tbg, _) = tra.allocate_batch_warm(
+            sp, *(x.to(cuda) for x in ins), tb0.to(cuda), tf0.to(cuda),
+            steps=30)
+        for f in ("b", "f", "T_edge", "E_edge", "obj"):
+            torch.testing.assert_close(getattr(rg, f).cpu(), getattr(rc, f),
+                                       rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(tbg.cpu(), tbc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hfel_assign_batch_matches_assign_on_card(cuda):
+    sp = tcm.SystemParams(n_devices=10, n_edges=3)
+    popb = tcm.sample_population_batch(sp, seeds=[11, 22, 33], device=cuda)
+    sched = np.arange(1, 9)
+    hfel = HFELAssigner(sp, n_transfer=12, n_exchange=16, alloc_steps=30,
+                        n_candidates=4)
+    A, J = hfel.assign_batch(popb, sched, [0, 1, 2])
+    for e in range(3):
+        a, j = hfel.assign(popb.pop(e), sched, np.random.default_rng(e))
+        np.testing.assert_array_equal(A[e], a)
+        assert J[e] == pytest.approx(j, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_d3qn_update_wave_card_matches_cpu(cuda):
+    sp = tcm.SystemParams(n_devices=10, n_edges=3)
+    tr = D3QNTrainer(sp, H=8, hidden=16, minibatch=16, target_sync=2,
+                     seed=3, device=cuda)
+    rng = np.random.default_rng(0)
+    for _ in range(6):
+        acts = rng.integers(0, 3, 8)
+        tr.replay.push(rng.random((8, tr.feat_dim)).astype(np.float32), acts,
+                       np.where(acts == 0, 1.0, -1.0))
+    mbs = tr.replay.sample_updates(np.random.default_rng(7), 5, 16)
+
+    def cpu(tree):
+        return tree_map(lambda v: v.cpu() if torch.is_tensor(v) else v, tree)
+    (pg, _, tg, _), lg = tr._update_wave(tr.params, tr.opt_state,
+                                         tr.target_params, 0, *mbs)
+    (pc, _, tc, _), lc = tr._update_wave(cpu(tr.params), cpu(tr.opt_state),
+                                         cpu(tr.target_params), 0, *cpu(mbs))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-6)
+    for a, b in zip(tree_leaves(pg) + tree_leaves(tg),
+                    tree_leaves(pc) + tree_leaves(tc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)

@@ -14,10 +14,12 @@ steps), so T_i/E_i are held to rtol 1e-5 and params to rtol 1e-5 /
 atol 1e-6; accuracy to one test sample (an f32 near-tie may flip one
 argmax). The sequential engine is held to the same tolerances.
 """
+import dataclasses
 import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -26,9 +28,12 @@ import repro.core.cost_model as jcm
 import repro.data as jdata
 from repro.core.framework import FrameworkConfig as JConfig
 from repro.core.framework import HFLFramework as JFramework
+from repro.configs.registry import get_config as j_get_config
 import repro_torch.core.cost_model as tcm
 import repro_torch.data as tdata
+from repro_torch.configs.registry import get_config as t_get_config
 from repro_torch.configs.registry import get_hfl_spec
+from repro_torch.configs.registry import get_smoke_config as t_get_smoke_config
 from repro_torch.convert import params_to_numpy
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.framework import FrameworkConfig as TConfig
@@ -36,6 +41,18 @@ from repro_torch.core.framework import HFLFramework as TFramework
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, M, H, K = 12, 3, 6, 3
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test process: the suite runs several
+    processes at once, and PyTorch's default of one thread per core in
+    each of them oversubscribes the cores (these rounds ran 10-30x
+    slower than alone). Restored after each test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _world(cm, data):
@@ -59,12 +76,20 @@ def _record_calls(obj, name, log):
     setattr(obj, name, spy)
 
 
-def _two_rounds_match_reference(jcfg, tcfg):
-    jf = JFramework(*_world(jcm, jdata), jcfg)
+def _two_rounds_match_reference(jcfg, tcfg, prepare=None, drl_params=None,
+                                param_atol=1e-6):
+    """Two rounds of both frameworks on the same world; ``prepare`` is
+    applied to each framework before its rounds; ``drl_params`` (the
+    reference's D3QN params) go to both as numpy arrays. Final params
+    are held to rtol 1e-5 and ``param_atol``."""
+    jf = JFramework(*_world(jcm, jdata), jcfg, drl_params=drl_params)
     labels = np.asarray(jf.scheduler.state.clusters)
     init = {k: np.asarray(v) for k, v in jf.model_params.items()}
     tf = TFramework(*_world(tcm, tdata), tcfg, init_params=init,
-                    labels=labels)
+                    labels=labels, drl_params=None if drl_params is None
+                    else jax.tree.map(np.asarray, drl_params))
+    for fw in (jf, tf) if prepare else ():
+        prepare(fw)
     assert tf.clustering_stats["ari"] == jf.clustering_stats["ari"]
     assert tf.clustering_stats["aux_bits"] == jf.clustering_stats["aux_bits"]
     for k in ("delay_s", "energy_j"):
@@ -92,7 +117,7 @@ def _two_rounds_match_reference(jcfg, tcfg):
     final = params_to_numpy(tf.model_params)
     for k, v in jf.model_params.items():
         np.testing.assert_allclose(final[k], np.asarray(v), rtol=1e-5,
-                                   atol=1e-6, err_msg=k)
+                                   atol=param_atol, err_msg=k)
     st, sj = tf.summary(), jf.summary()
     assert st["iters"] == sj["iters"] == 2
     np.testing.assert_allclose(st["objective"], sj["objective"], rtol=1e-5)
@@ -145,14 +170,24 @@ def test_config_needs_cpu_asked_for():
     assert TConfig(device="cpu").device == "cpu"
 
 
-@pytest.mark.parametrize("field,value", [("assigner", "hfel"),
-                                         ("assigner", "drl")])
-def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("field,value,match", [
+    ("assigner", "nearest", "unknown assigner"),
+    ("hfel_search", "magic", "unknown hfel_search")])
+def test_unknown_options_raise(field, value, match):
+    with pytest.raises(ValueError, match=match):
         TConfig(device="cpu", **{field: value})
 
 
+def test_drl_assigner_needs_params():
+    cfg = TConfig(H=H, K=K, assigner="drl", device="cpu")
+    with pytest.raises(ValueError, match="drl_params"):
+        TFramework(*_world(tcm, tdata), cfg, labels=np.arange(N) % K)
+
+
 def test_registry():
+    assert (dataclasses.asdict(t_get_config("hfl-cnn"))
+            == dataclasses.asdict(j_get_config("hfl-cnn")))
+    assert t_get_smoke_config("hfl-cnn") == t_get_config("hfl-cnn")
     assert get_hfl_spec("hfl-cnn") is get_hfl_spec("hfl-cnn")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_hfl_spec("mamba2-2.7b")

@@ -32,6 +32,7 @@ from repro_torch.core.hfl import pad_device_data as t_pad
 from repro_torch.data import make_dataset
 from repro_torch.data import partition_noniid as t_partition
 from repro_torch.models import cnn as tcnn
+from test_torch_framework import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("seed", [1, 7])
