@@ -18,9 +18,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K3, and K4 for each wire dtype int8, bf16, f32) runs every case of
    AGG_CASES as a one-leaf launch, then the four CNN leaves of an edge
    hop (M=5, H=50) and of the cloud hop (M=1 over 5 edges) as one
-   launch each (the hop lines): graph-replay, eager and cold-L2 times
-   (COLD_BYTES written before each call, each call timed alone) beside
-   the plain version, one torch.bmm a leaf and the bound.
+   launch each (the hop lines), and K1 and int8 K4 over the sweep's
+   edge and cloud hops (4 lanes x the four leaves, one launch each):
+   graph-replay, eager and cold-L2 times (COLD_BYTES written before
+   each call, each call timed alone) beside the plain version, one
+   torch.bmm a leaf and the bound.
 3. Main paths: one Table-I world at full width (N=100 devices, M=5
    edges, D_n in [400, 700], the paper CNN of 457 532 bytes, H=50,
    K=10, IKC scheduling, geo assignment, 200-step allocation) through
@@ -56,8 +58,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       rel 1e-6);
    b. D3QN training (Algorithm 5) at the trainer's full width
       (``D3QNTrainer(sp, H=50, hidden=256)``: M=5, HFEL-100/300
-      targets, ``alloc_steps=120``, ``wave_size=8``), 3 waves (24
-      episodes; the episode count is the only cut): losses finite,
+      targets, ``alloc_steps=120``, ``wave_size=8``), D3QN_WAVES=2
+      waves (16 episodes; the episode count is the only cut): losses finite,
       params moved, seconds a wave split into target search and
       updates, episodes/s; then one update wave on the card against the
       same wave run on the CPU from the same params and minibatches
@@ -73,11 +75,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device busy time against wall time, and the kernels that took the
    most.
 
-The HFL frameworks are then released, and the dense decoder's serving
-path runs (chatglm3-6b, f32 weights drawn on the card from a seed, bf16
-compute):
+The HFL frameworks are then released, and the sweep runs on the same
+world:
 
-7. Flash attention: the kernel against its plain version at the
+7. The multi-lane sweep, ``SweepRunner`` over SWEEP_LANES=4 lanes of the
+   Table-I world (lane seeds 0-3, H=50, IKC schedulers built by
+   ``build_scheduler(use_kernel=True)``, 200-step allocations,
+   ``agg_kernel=True``), the launch counters zeroed before and checked
+   after each path:
+   a. a 3-round geo host loop: K1 6 launches a round for all lanes (18,
+      not 72), K2 4 clusterings x 480; wall a round, lane-rounds/s and
+      peak memory (must stay below 70 GB; above it the phase would need
+      ``lane_chunk``), then one more round under ``torch.profiler``;
+   b. lane 0 of a 2-round kernel sweep against ``HFLFramework`` on that
+      world alone, from lane 0's init and clustering: T_i and E_i equal,
+      params within PARAM_TOL;
+   c. that kernel sweep against a plain-matmul one (``agg_kernel=
+      False``): T_i and E_i equal, params within PARAM_TOL;
+   d. ``run(fused=True)`` against ``fused="oracle"``, geo for 2 rounds
+      and hfel for 1 (the round cut for time): the fused window
+      (``sweep_scan``) runs under ``torch.cuda.set_sync_debug_mode(
+      "error")``, one window for the fused run and one a round for the
+      oracle, records equal, params within PARAM_TOL; the fused HFEL
+      search (HFEL-40/80, K=16, 4 lanes) inside each hfel round is timed
+      by CUDA events;
+   e. a 2-round int8 sweep: K4 6 launches a round for all lanes, 12.
+
+Then the dense decoder's serving path runs (chatglm3-6b, f32 weights
+drawn on the card from a seed, bf16 compute):
+
+8. Flash attention: the kernel against its plain version at the
    prefill's shape (B=2, S=4096, 32 q heads, 2 KV heads, d=128, bf16)
    and at edge cases (ragged S, windows, head dims 16/48/80, MHA, f32,
    a layout that TMA cannot read, a 16 384-token sequence), each on the
@@ -85,16 +112,16 @@ compute):
    prefill's shape against the bound, the kernel's own floor (1.5x the
    bound: P V runs twice, P's bf16 head and remainder), the plain version
    and PyTorch's SDPA.
-8. A': two layers at full width in f32: the prefill through the kernel
+9. A': two layers at full width in f32: the prefill through the kernel
    (2 launches, fma) against the plain prefill within LM_F32_TOL of the
    largest logit, and the serving loop's teacher-forced decode logits
    against the kernel prefill of the same prompt, within the same.
-9. A: all 28 layers, bf16: the prefill through the kernel (28
+10. A: all 28 layers, bf16: the prefill through the kernel (28
    launches, every one on the wgmma kernel) against the plain prefill (0), by the largest difference
    relative to the largest logit and by the share of positions whose
    argmax agrees (limits LM_BF16_REL, LM_BF16_AGREE); both against an
    f32 plain prefill, printed.
-10. B: the ``serve_lm`` loop on the full model (batch 8, prompt 32, 64
+11. B: the ``serve_lm`` loop on the full model (batch 8, prompt 32, 64
    greedy tokens; no kernel launch), its tokens in range, its
    teacher-forced logits against the kernel prefill of the prompt (the
    same limits as A); prefill and decode seconds and tokens/s. Then one
@@ -103,7 +130,9 @@ Each phase prints its peak device memory.
 
 The line before the last is a JSON object with one entry per kernel
 (the decode-aggregate kernel once per wire dtype; the aggregation
-kernels' times from their edge hop line); the last line is
+kernels' times from their edge hop line; K1's and int8 K4's entries
+also carry the sweep's edge hop and their launches in phases 7a and 7e,
+K1's the sweep's figures); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -196,6 +225,10 @@ WIRE = (("int8", "i8"), ("bfloat16", "bf16"), ("float32", "f32"))
 HOPS = (("edge", 5, 50), ("cloud", 1, 5))
 COLD_BYTES = 128 * 2 ** 20   # written before a cold-L2 call (L2: 50 MB)
 COLD_SPIN = 1_000_000        # cycles (~0.5 ms) spun before each such call
+SWEEP_LANES, SWEEP_ROUNDS = 4, 3   # the sweep phase's lanes and host rounds
+# the depth cut that keeps the script near 400 s once the sweep phase
+# runs: D3QN waves (3 before the sweep phase)
+D3QN_WAVES = 2
 
 
 def check(cond, msg):
@@ -327,12 +360,12 @@ def bench_agg(torch, rate, label, case, run, plain, library, nbytes, acc):
 
 
 def bench_hop(torch, rate, label, tag, M, H, run, plain, library, nbytes,
-              counter, leaf_sum):
-    """One grouped launch over the four CNN leaves of a hop: each output
-    against its plain version, the launch counted once, then graph,
-    eager and cold-L2 times beside the plain version (leaf by leaf), the
-    library calls (one torch.bmm a leaf) and the bound. Returns the
-    kernel's figures for the result line."""
+              counter, leaf_sum, S=1):
+    """One grouped launch over the four CNN leaves of a hop of ``S``
+    lanes: each output against its plain version, the launch counted
+    once, then graph, eager and cold-L2 times beside the plain version
+    (leaf by leaf), the library calls (one torch.bmm a leaf) and the
+    bound. Returns the kernel's figures for the result line."""
     got, ref = run(), plain()
     torch.cuda.synchronize()
     err = 0.0
@@ -348,11 +381,11 @@ def bench_hop(torch, rate, label, tag, M, H, run, plain, library, nbytes,
     t_p, e_p = time_ms(plain, 200)
     t_l, e_l = time_ms(library, 200)
     cold = time_cold(torch, run)
-    flops = 2 * M * H * sum(LEAVES)
+    flops = 2 * S * M * H * sum(LEAVES)
     by_bytes, by_flops = nbytes / rate, flops / F32_FLOPS
     bound = max(by_bytes, by_flops) * 1e3
-    print(f"{label} {tag} hop, one launch over {len(LEAVES)} leaves, M={M} "
-          f"H={H}: kernel_ms={t_k:.5f} cold_l2_ms={cold:.5f} "
+    print(f"{label} {tag} hop, one launch over {len(LEAVES)} leaves, S={S} "
+          f"M={M} H={H}: kernel_ms={t_k:.5f} cold_l2_ms={cold:.5f} "
           f"eager_ms={e_k:.5f} plain_ms={t_p:.5f} library_ms={t_l:.5f} "
           f"(eager {e_l:.5f}) bound_ms={bound:.5f} "
           f"({nbytes / 1e6:.3f} MB) max_abs_err={err:.3e}"
@@ -415,6 +448,24 @@ def kernel_phase(torch, rate):
             r1["err"] = max(r1["err"], k1["err"])
             r3["err"] = max(r3["err"], k3["err"])
             out["masked_aggregate"], out["weighted_aggregate"] = r1, r3
+    # the sweep's hops: one launch over SWEEP_LANES lanes x 4 leaves
+    S = SWEEP_LANES
+    for tag, M, H in HOPS:
+        mask, sizes, _ = agg_case(torch, dev, rng, S, M, H, 1)
+        leaves = [agg_case(torch, dev, rng, S, M, H, P)[2] for P in LEAVES]
+        w = panel(mask, sizes)
+        r1 = bench_hop(
+            torch, rate, "masked_aggregate", f"{S}-lane {tag}", M, H,
+            lambda: ha.masked_aggregate_leaves_batched(mask, sizes, leaves),
+            lambda: ha.masked_aggregate_leaves_batched_ref(mask, sizes,
+                                                           leaves),
+            lambda: [torch.bmm(w, x) for x in leaves],
+            agg_bytes(S, M, H, LEAVES, 4, 1),
+            ha.masked_aggregate_leaves_batched_cuda, None, S=S)
+        out["masked_aggregate"]["err"] = max(out["masked_aggregate"]["err"],
+                                             r1["err"])
+        if tag == "edge":
+            out["masked_aggregate_lanes"] = r1
 
     # ---- K4 masked_decode_aggregate, per wire dtype as the codecs emit
     #      it: int8 levels with absmax/127 scales, bf16 deltas and
@@ -456,6 +507,31 @@ def kernel_phase(torch, rate):
             if tag == "edge":
                 r4["err"] = max(r4["err"], k4["err"])
                 out[f"masked_decode_aggregate_{short}"] = r4
+        if dtype != torch.int8:
+            continue
+        # the int8 sweep's hops: one launch over SWEEP_LANES lanes x 4
+        # leaves
+        S = SWEEP_LANES
+        for tag, M, H in HOPS:
+            mask, sizes, _ = agg_case(torch, dev, rng, S, M, H, 1)
+            sq = [wire(torch, agg_case(torch, dev, rng, S, M, H, P)[2],
+                       dtype) for P in LEAVES]
+            scs, qs = [a for a, _ in sq], [b for _, b in sq]
+            w = panel(mask, sizes)
+            wscs = [w * sc[:, None, :] for sc in scs]
+            r4 = bench_hop(
+                torch, rate, label, f"{S}-lane {tag}", M, H,
+                lambda: ha.masked_decode_aggregate_leaves_batched(
+                    mask, sizes, scs, qs),
+                lambda: ha.masked_decode_aggregate_leaves_batched_ref(
+                    mask, sizes, scs, qs),
+                lambda: [torch.bmm(a, q.float()) for a, q in zip(wscs, qs)],
+                agg_bytes(S, M, H, LEAVES, 1, 5),
+                ha.masked_decode_aggregate_leaves_batched_cuda, None, S=S)
+            row = out[f"masked_decode_aggregate_{short}"]
+            row["err"] = max(row["err"], r4["err"])
+            if tag == "edge":
+                out[f"masked_decode_aggregate_{short}_lanes"] = r4
 
     # ---- K2 pairwise_sq_dists: the clustering's shape and K > 128
     k2 = {}
@@ -598,7 +674,7 @@ def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
           f"4 assign calls ({secs_s:.3f} s; max |J diff| {dJ:.3e}); "
           f"J={np.round(J, 6).tolist()}")
 
-    # ---- b. D3QN training, 3 waves at full width
+    # ---- b. D3QN training, D3QN_WAVES waves at full width
     torch.cuda.reset_peak_memory_stats()
     tr = D3QNTrainer(sp, H=50, hidden=256, alloc_steps=120, wave_size=8)
     split = {"search": 0.0, "update": 0.0}
@@ -616,20 +692,22 @@ def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
     tr._update_wave = timing("update", tr._update_wave)
     p0 = [x.clone() for x in tree_leaves(tr.params)]
     walls, losses = [], []
-    for w in range(3):
+    for w in range(D3QN_WAVES):
         (rets, loss), secs = timed(torch, tr.run_wave)
         walls.append(secs)
         losses.append(loss.cpu().numpy())
         print(f"D3QN wave {w + 1}: {secs:.3f} s, returns "
               f"{rets.astype(int).tolist()}, td losses "
               f"{np.round(losses[-1], 4).tolist()}")
-    n_ep = 3 * tr.wave_size
+    n_ep = D3QN_WAVES * tr.wave_size
     print(f"D3QN H={tr.H} hidden={tr.hidden} M={sp.n_edges} HFEL-"
           f"{tr.hfel_transfer}/{tr.hfel_exchange} alloc_steps="
-          f"{tr.alloc_steps} wave_size={tr.wave_size}: {sum(walls) / 3:.3f} "
-          f"s a wave (target search {split['search'] / 3:.3f} s, updates "
-          f"{split['update'] / 3:.3f} s, the rest "
-          f"{(sum(walls) - split['search'] - split['update']) / 3:.3f} s), "
+          f"{tr.alloc_steps} wave_size={tr.wave_size}: "
+          f"{sum(walls) / D3QN_WAVES:.3f} s a wave (target search "
+          f"{split['search'] / D3QN_WAVES:.3f} s, updates "
+          f"{split['update'] / D3QN_WAVES:.3f} s, the rest "
+          f"{(sum(walls) - split['search'] - split['update']) / D3QN_WAVES:.3f}"
+          f" s), "
           f"{n_ep / sum(walls):.3f} episodes/s, {tr.step} updates, peak "
           f"memory {peak_gb(torch)}")
     check(tr.episode == n_ep and tr.step == n_ep, "D3QN: episode/step count")
@@ -683,6 +761,206 @@ def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
         del fa
     print(f"assign_latency_s on round 1's cohort (H={len(sched)}): "
           + ", ".join(f"{k} {v:.6f}" for k, v in lat.items()))
+
+
+def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
+    """Phase 7: the multi-lane sweep (``SweepRunner``) on the Table-I
+    world at full CNN width, SWEEP_LANES lanes (lane seeds 0-3), H=50,
+    IKC schedulers, 200-step allocations, the kernels on. Returns the
+    figures for the result line."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core import sweep as sw
+    from repro_torch.core.framework import FrameworkConfig, HFLFramework
+
+    S = SWEEP_LANES
+    seeds = list(range(S))
+    worlds = [(pop, fed)] * S
+    kw = dict(lr=0.01, alloc_steps=200, agg_kernel=True)
+    per_round = sp.Q + 1
+    out = {}
+
+    def schedulers(labels=None):
+        return [sw.build_scheduler(
+            "ikc", fed, sp, H, K=K, seed=s, use_kernel=True,
+            labels=None if labels is None else labels[s])
+            for s in seeds]
+
+    def lanes_close(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    t_phase = time.perf_counter()
+
+    def lap(step):
+        torch.cuda.synchronize()
+        print(f"sweep {step} done at {time.perf_counter() - t_phase:.1f} s "
+              "into the phase")
+
+    # ---- a. a 3-round geo host loop: one K1 launch a hop for all lanes
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    (runner, scheds), setup_s = timed(torch, lambda: (
+        sw.SweepRunner(sp, worlds, **kw), schedulers()))
+    labels = [s.state.clusters.copy() for s in scheds]
+    res, wall = timed(torch, lambda: runner.run(scheds, SWEEP_ROUNDS,
+                                                seeds=seeds))
+    out["launches"] = read_counts(
+        f"sweep a ({S} lanes, {SWEEP_ROUNDS} geo rounds)", {
+        "masked_aggregate": SWEEP_ROUNDS * per_round,
+        "pairwise_sq_dists": S * 8 * ((K - 1) + 50 + 1)}
+    )["masked_aggregate"]
+    peak = torch.cuda.max_memory_allocated()
+    per = wall / SWEEP_ROUNDS
+    print(f"sweep a: setup {setup_s:.3f} s ({S} IKC clusterings); "
+          f"{SWEEP_ROUNDS} rounds {wall:.3f} s, {per:.3f} s a round, "
+          f"{S / per:.3f} lane-rounds/s; H={res['H']}; acc "
+          f"{np.round(res['acc'], 4).tolist()}; T_i "
+          f"{np.round(res['T_i'], 3).tolist()}; peak memory "
+          f"{peak / 1e9:.2f} GB")
+    check(res["acc"].shape == (S, SWEEP_ROUNDS)
+          and np.isfinite(res["acc"]).all()
+          and np.isfinite(res["T_i"]).all() and (res["T_i"] > 0).all(),
+          "sweep a: records not finite")
+    check(peak < 70e9, f"sweep a: peak memory {peak / 1e9:.2f} GB: use "
+          "lane_chunk")
+    out.update(round_s=per, lane_rounds_s=S / per, peak_gb=peak / 1e9,
+               setup_s=setup_s)
+    profiled(torch, f"sweep round ({S} lanes, geo)",
+             lambda: runner.run(schedulers(labels), 1, seeds=seeds),
+             warm_up=False)
+    del runner
+    lap("a")
+
+    # ---- b/c. the kernel sweep against the plain one and lane 0 against
+    #      HFLFramework, 2 rounds from the same init and clustering
+    zero_counts()
+    kern = sw.SweepRunner(sp, worlds, **kw)
+    rk = kern.run(schedulers(labels), 2, seeds=seeds)
+    read_counts("sweep b (kernel sweep, 2 rounds)",
+                {"masked_aggregate": 2 * per_round})
+    plain = sw.SweepRunner(sp, worlds, **{**kw, "agg_kernel": False})
+    rp = plain.run(schedulers(labels), 2, seeds=seeds)
+    dmax = lanes_close(kern.params_b, plain.params_b)
+    print(f"sweep c: kernel vs plain sweep, 2 rounds: T_i "
+          f"{rk['T_i'].tolist()} vs {rp['T_i'].tolist()}, max |dparam| "
+          f"{dmax:.3e} (tolerance {PARAM_TOL})")
+    check(np.array_equal(rk["T_i"], rp["T_i"])
+          and np.array_equal(rk["E_i"], rp["E_i"]),
+          "sweep c: T_i/E_i differ between the aggregation backends")
+    check(dmax <= PARAM_TOL, f"sweep c: params differ by {dmax}")
+    del plain
+    zero_counts()
+    cfg = FrameworkConfig(H=H, K=K, scheduler="ikc", assigner="geo",
+                          agg_kernel=True, alloc_steps=200, seed=seeds[0])
+    fw = HFLFramework(sp, pop, fed, cfg, labels=labels[0],
+                      init_params={k: v[0] for k, v in
+                                   kern.params0.items()})
+    recs = [fw.run_round(i) for i in (1, 2)]
+    read_counts("sweep b (HFLFramework, lane 0's world, 2 rounds)",
+                {"masked_aggregate": 2 * per_round})
+    d0 = max(float((kern.params_b[k][0] - v).abs().max())
+             for k, v in fw.model_params.items())
+    fT = [r["T_i"] for r in recs]
+    fE = [r["E_i"] for r in recs]
+    print(f"sweep b: lane 0 vs HFLFramework: T_i {rk['T_i'][0].tolist()} "
+          f"vs {fT}, E_i {rk['E_i'][0].tolist()} vs {fE}, acc "
+          f"{rk['acc'][0].tolist()} vs {[r['acc'] for r in recs]}, max "
+          f"|dparam| {d0:.3e} (tolerance {PARAM_TOL}); framework round "
+          f"walls {[round(sum(r['seconds'].values()), 3) for r in recs]} s")
+    check(np.array_equal(rk["T_i"][0], np.float32(fT))
+          and np.array_equal(rk["E_i"][0], np.float32(fE)),
+          "sweep b: lane 0's T_i/E_i differ from the framework's")
+    check(d0 <= PARAM_TOL, f"sweep b: lane 0's params differ by {d0}")
+    del fw
+    lap("b/c")
+
+    # ---- d. fused against oracle, geo (2 rounds) and hfel (1 round): the
+    #      fused window runs with every host synchronisation an error; the
+    #      HFEL search inside it is timed by CUDA events, read afterwards
+    real_scan, real_search = sw.sweep_scan, sw.hfel_search_traced
+    windows, marks = [], []
+
+    def guarded(*a, **kw_):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res_ = real_scan(*a, **kw_)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        windows.append(kw_["n_rounds"])
+        return res_
+
+    def timed_search(*a, **kw_):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res_ = real_search(*a, **kw_)
+        ev[1].record()
+        marks.append(ev)
+        return res_
+
+    sw.sweep_scan, sw.hfel_search_traced = guarded, timed_search
+    runner = kern                    # the kernel sweep's runner, reused
+    try:
+        for assign, R in (("geo", 2), ("hfel", 1)):
+            zero_counts()
+            windows.clear()
+            rf, wf = timed(torch, lambda: runner.run(
+                schedulers(labels), R, assign=assign, seeds=seeds,
+                fused=True))
+            pf = runner.params_b
+            ro, wo = timed(torch, lambda: runner.run(
+                schedulers(labels), R, assign=assign, seeds=seeds,
+                fused="oracle"))
+            read_counts(f"sweep d ({assign}: fused + oracle, {R} rounds "
+                        "each)", {"masked_aggregate": 2 * R * per_round})
+            dmax = lanes_close(pf, runner.params_b)
+            print(f"sweep d {assign}: fused {wf:.3f} s (n_dispatches "
+                  f"{rf['n_dispatches']}), oracle {wo:.3f} s "
+                  f"(n_dispatches {ro['n_dispatches']}); T_i "
+                  f"{rf['T_i'].tolist()}; max |dparam| {dmax:.3e}; sync "
+                  f"debug windows {windows}")
+            check(windows == [R] + [1] * R and rf["n_dispatches"] == 1
+                  and ro["n_dispatches"] == R,
+                  f"sweep d {assign}: windows {windows}")
+            for k in ("acc", "T_i", "E_i", "iters"):
+                check(np.array_equal(rf[k], ro[k]),
+                      f"sweep d {assign}: fused {k} differs from oracle")
+            check(dmax <= PARAM_TOL, f"sweep d {assign}: params {dmax}")
+            out[f"fused_{assign}_s"], out[f"oracle_{assign}_s"] = wf, wo
+    finally:
+        sw.sweep_scan, sw.hfel_search_traced = real_scan, real_search
+    torch.cuda.synchronize()
+    searches = [a.elapsed_time(b) / 1e3 for a, b in marks]
+    check(len(searches) == 2, f"sweep d: {len(searches)} HFEL searches")
+    print(f"sweep d: hfel_search_traced, {S} lanes x HFEL-40/80 K=16, "
+          f"200-step cold and 80-step warm solves, inside the fused and the "
+          f"oracle round (CUDA events): {[round(t, 3) for t in searches]} s")
+    out["hfel_search_s"] = searches
+    del runner, kern
+    lap("d")
+
+    # ---- e. a 2-round int8 sweep: one K4 launch a hop for all lanes
+    zero_counts()
+    r8 = sw.SweepRunner(sp, worlds, **kw, compression=comp.CompressionConfig(
+        codec="int8"))
+    res8, w8 = timed(torch, lambda: r8.run(schedulers(labels), 2,
+                                           seeds=seeds))
+    out["int8_launches"] = read_counts(
+        "sweep e (int8, 2 rounds)",
+        {"masked_decode_aggregate": 2 * per_round})["masked_decode_aggregate"]
+    print(f"sweep e int8: {w8:.3f} s for 2 rounds; msg_bits "
+          f"{res8['msg_bits_per_round']:.0f} vs {rk['msg_bits_per_round']:.0f}"
+          f"; T_i {res8['T_i'].tolist()}; acc {res8['acc'].tolist()}")
+    check(np.isfinite(res8["acc"]).all() and np.isfinite(res8["T_i"]).all()
+          and res8["msg_bits_per_round"] * 3.9 < rk["msg_bits_per_round"],
+          "sweep e: int8 records")
+    check(all(bool(torch.isfinite(v).all()) for v in r8.params_b.values()),
+          "sweep e: non-finite params")
+    del r8
+    lap("e")
+    torch.cuda.empty_cache()
+    print(f"sweep phase: peak memory {peak_gb(torch)}")
+    return out
 
 
 def attention_pairs(S: int, causal: bool, window: int) -> int:
@@ -792,7 +1070,7 @@ def peak_gb(torch) -> str:
 
 
 def lm_phases(torch, rate, zero_counts, read_counts):
-    """Phases 7-10: K5, then chatglm3-6b's prefill and serving paths."""
+    """Phases 8-11: K5, then chatglm3-6b's prefill and serving paths."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve_lm
@@ -930,14 +1208,18 @@ def lm_phases(torch, rate, zero_counts, read_counts):
     return out
 
 
-def profiled(torch, label, fn):
-    """Run ``fn`` once warm under torch.profiler; print wall, device busy
-    time and the kernels that took the most."""
+def profiled(torch, label, fn, warm_up=True):
+    """Run ``fn`` under torch.profiler (after one warm-up call unless the
+    caller's code is warm already); print wall, device busy time and the
+    kernels that took the most. Only the CUDA activity is recorded: the
+    kernels' times are the same, and on a 4-lane sweep round recording
+    the CPU activity too made the profile's post-processing ~30 s
+    longer."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = timed(torch, fn)
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -970,7 +1252,6 @@ def _leaves(tree):
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
@@ -1009,7 +1290,7 @@ def main() -> int:
         return got
 
     # ------------------------------------------------------------ setup
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(logs) or 'nothing (cached)'} "
@@ -1213,23 +1494,18 @@ def main() -> int:
     print(f"setup again: {time.perf_counter() - t0:.3f} s (clustering "
           f"{again.setup_seconds['cluster']:.3f} s)")
     del again
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fw.run_round(4)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e6
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profiled round 4: wall {wall:.3f} s, device busy {busy:.3f} s "
-          f"({busy / wall:.1%}); top device time: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
-              f"x{e.count}" for e in top))
+    profiled(torch, "round 4", lambda: fw.run_round(4), warm_up=False)
 
     # ------------------------------------- release the HFL frameworks
-    del fw, fw8, X, y, Xt, yt, fed, pop, labels
+    del fw, fw8
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ sweep (phase 7)
+    t0 = time.perf_counter()
+    sweep = sweep_phase(torch, sp, pop, fed, zero_counts, read_counts)
+    sweep["phase_s"] = time.perf_counter() - t0
+    print(f"sweep phase: {sweep['phase_s']:.1f} s")
+    del X, y, Xt, yt, fed, pop, labels
     torch.cuda.empty_cache()
     lm = lm_phases(torch, rate, zero_counts, read_counts)
     kres["flash_attention"] = lm.pop("kernel")
@@ -1259,6 +1535,20 @@ def main() -> int:
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:86",
         "one launch, B=2, S=4096, Hq=32, Hkv=2, d=128, causal, bf16")
+    def sweep_hop(key):
+        lanes = kres[f"{key}_lanes"]
+        return {"work": f"one sweep edge hop: one launch over {SWEEP_LANES} "
+                        "lanes x 4 leaves, H=50, M=5",
+                **{k: lanes[k] for k in ("ms", "eager_ms", "cold_ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}}
+    extra = {"masked_aggregate": {
+                 "sweep_launches": sweep.pop("launches"),
+                 "sweep_hop": sweep_hop("masked_aggregate")},
+             "masked_decode_aggregate_i8": {
+                 "sweep_launches": sweep.pop("int8_launches"),
+                 "sweep_hop": sweep_hop("masked_decode_aggregate_i8")}}
+    extra["masked_aggregate"]["sweep"] = sweep
     kernels = []
     for key, (kname, source, replaces, work) in routes.items():
         r = kres[key]
@@ -1269,7 +1559,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "eager_ms": r["eager_ms"],
             "work": work, **({"cold_l2_ms": r["cold_ms"]}
-                             if "cold_ms" in r else {})})
+                             if "cold_ms" in r else {}),
+            **extra.get(key, {})})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

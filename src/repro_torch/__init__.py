@@ -43,17 +43,25 @@ Module map (port -> reference):
                                                trial layouts)
 ``repro_torch.core.clustering``                ``repro.core.clustering``
 ``repro_torch.core.scheduling``                ``repro.core.scheduling`` (device_clustering;
-                                               vectorized schedulers, numpy copies)
-``repro_torch.core.assignment.geo``            ``repro.core.assignment.geo`` (GeoAssigner)
+                                               vectorized schedulers, numpy copies;
+                                               TracedFedAvg)
+``repro_torch.core.assignment.geo``            ``repro.core.assignment.geo`` (GeoAssigner,
+                                               geo_assign_traced)
 ``repro_torch.core.assignment.hfel``           ``repro.core.assignment.hfel`` (host engines:
-                                               serial, batched, assign_batch)
-``repro_torch.core.assignment.drl``            ``repro.core.assignment.drl`` (DRLAssigner)
+                                               serial, batched, assign_batch; the device
+                                               search hfel_search_traced)
+``repro_torch.core.assignment.drl``            ``repro.core.assignment.drl`` (DRLAssigner,
+                                               drl_features_traced, drl_assign_traced)
 ``repro_torch.optim``                          ``repro.optim`` (sgd, adam, adafactor,
                                                clip_by_global_norm, schedules)
 ``repro_torch.drl``                            ``repro.drl`` (bilstm, d3qn, replay, train:
                                                Algorithm 5)
 ``repro_torch.core.framework``                 ``repro.core.framework`` (fused and sequential
-                                               engines, codecs; geo/hfel/drl assignment)
+                                               engines, codecs; geo/hfel/drl assignment;
+                                               the lane-batched round body)
+``repro_torch.core.sweep``                     ``repro.core.sweep`` (SweepRunner: host loop,
+                                               lane batching, lane_chunk, fused engine,
+                                               codec carries; no ``shard=True``)
 ``repro_torch.kernels.hier_agg.ops``           ``repro.kernels.hier_agg`` masked_aggregate,
                                                weighted_aggregate, masked_decode_aggregate
 ``repro_torch.kernels.kmeans_dist.ops``        ``repro.kernels.kmeans_dist`` pairwise_sq_dists
@@ -77,3 +85,23 @@ Pallas functions they replace:
 ``csrc/hopper.cuh`` holds the Hopper building blocks (mbarriers, TMA
 loads, wgmma) that the kernels include.
 """
+
+import importlib
+
+# entry points, imported on first use (``import repro_torch`` stays light)
+_EXPORTS = {
+    "HFLFramework": "repro_torch.core.framework",
+    "FrameworkConfig": "repro_torch.core.framework",
+    "SweepRunner": "repro_torch.core.sweep",
+    "build_scheduler": "repro_torch.core.sweep",
+    "sweep_round": "repro_torch.core.sweep",
+    "sweep_scan": "repro_torch.core.sweep",
+    "TracedFedAvg": "repro_torch.core.scheduling.schedulers",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

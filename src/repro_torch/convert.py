@@ -33,3 +33,13 @@ def params_from_numpy(tree, device="cuda"):
 def params_to_numpy(tree):
     """A tree of the port's tensors -> the same tree of numpy arrays."""
     return tree_map(lambda v: v.detach().cpu().numpy(), tree)
+
+
+def lanes_from_numpy(trees, device="cuda"):
+    """S parameter dicts of array-likes (one a sweep lane, e.g. the
+    reference's initial weights through ``np.asarray``) -> one dict of
+    lane-stacked f32 tensors, each leaf (S, ...), on ``device``."""
+    trees = list(trees)
+    dev = resolve_device(device)
+    return {k: torch.stack([_to_tensor(t[k], dev) for t in trees])
+            for k in trees[0]}

@@ -26,7 +26,12 @@ Two search engines share the move neighborhood:
   and one accept pass a round for all of them; ``assign`` is its
   one-population case.
 
-Every decision is made on the host in numpy, with the reference's code:
+``hfel_search_traced`` is the device engine of the fused sweep: the
+batched search with no carry list and no host round trip, for S lanes
+at once (see its docstring).
+
+Every decision of the host engines is made on the host in numpy, with
+the reference's code:
 proposals (``rng.choice(..., replace=False)`` and an ordered ``seen``
 set), the candidate order (``np.argsort``), the padding rows (the
 incumbent, marked invalid, J = inf). The population's device runs the
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import resource as ra
+from repro_torch.utils import permutation_prefix
 
 _TRANSFER, _EXCHANGE = 0, 1
 _ACCEPT_TOP = 4          # max non-conflicting accepts per batched round
@@ -549,3 +555,159 @@ class HFELAssigner:
                 seen.add(key)
                 moves.append((_EXCHANGE, key[0], key[1]))
         return moves
+
+
+# ------------------------------------------------ device search (fused)
+
+def _round_plan(n_transfer: int, n_exchange: int, K: int):
+    """Static per-round (kind, budget) plan of the K-candidate search:
+    ``ceil(n_transfer/K)`` transfer rounds then ``ceil(n_exchange/K)``
+    exchange rounds, the last round of each phase carrying the remainder
+    budget — the host engines' trial accounting as two int32 arrays."""
+    kinds, budgets = [], []
+    for kind, budget in ((_TRANSFER, n_transfer), (_EXCHANGE, n_exchange)):
+        remaining = int(budget)
+        while remaining > 0:
+            k = min(K, remaining)
+            remaining -= k
+            kinds.append(kind)
+            budgets.append(k)
+    return np.asarray(kinds, np.int32), np.asarray(budgets, np.int32)
+
+
+def hfel_search_traced(sp: cm.SystemParams, u, D, p, g, B_m, g_cloud,
+                       words: Optional[torch.Tensor] = None, *,
+                       draws=None, n_transfer: int = 40,
+                       n_exchange: int = 80, n_candidates: int = 16,
+                       alloc_steps: int = 100,
+                       warm_steps: Optional[int] = None,
+                       accept_top: int = _ACCEPT_TOP):
+    """The K-candidate HFEL search of S lanes at once, entirely on the
+    device (the fused sweep's assigner; port of the reference's
+    ``hfel_search_traced``).
+
+    u/D/p (S, H) cohort features, g (S, H, M) cohort gains, B_m and
+    g_cloud (S, M). Per lane, as the reference: the best-gain start and
+    a cold solve of its M edges; then for each round of
+    :func:`_round_plan` both proposal kinds are drawn (the first K of a
+    permutation of the H·M transfers and of the H·H ordered exchanges)
+    and selected on the round's kind, the 2K affected edges of all lanes
+    solve in one ``allocate_batch_warm`` call (S·K·2 rows, warm from the
+    incumbent's iterates), ``_accept_scan_core`` commits up to
+    ``accept_top`` non-conflicting improving moves in J order, and the
+    accepted moves' assignments and iterates are written back. No carry
+    list, as in the reference: a blocked move may be drawn again.
+
+    Proposals: ``draws`` gives the raw permutation prefixes,
+    ``(raw_t, raw_e)``, each (S, n_plan_rounds, K) int64 (a test feeds
+    the reference's ``jax.random`` outcomes); otherwise they come from
+    the counter-based stream of ``words`` ((S, W) int64, one row a lane;
+    ``utils.permutation_prefix``). Returns (assign (S, H) int64, J (S,)).
+    """
+    S, H, M = g.shape
+    K = max(1, int(n_candidates))
+    if K > min(H * M, H * H):
+        raise ValueError(f"n_candidates={K} exceeds the move "
+                         f"neighborhood (H={H}, M={M})")
+    if draws is None and words is None:
+        raise ValueError("hfel_search_traced needs words= or draws=")
+    warm = warm_steps or _warm_steps(alloc_steps)
+    dev = g.device
+    T_cl, E_cl = cm.cloud_cost(sp, g_cloud)                  # (S, M)
+    lam = sp.lam
+    gT = g.transpose(1, 2)                                  # (S, M, H)
+    assign = torch.argmax(g, dim=-1)                        # (S, H)
+    lanes = torch.arange(S, device=dev)
+    rowsK = torch.arange(K, device=dev)
+
+    # cold solve of every lane's M incumbent edges at full fidelity
+    masks0 = assign[:, None, :] == torch.arange(M, device=dev)[None, :, None]
+    flat = S * M
+    res0, (tb, tf) = ra.allocate_batch_warm(
+        sp, u[:, None].expand(S, M, H).reshape(flat, H),
+        D[:, None].expand(S, M, H).reshape(flat, H),
+        p[:, None].expand(S, M, H).reshape(flat, H), gT.reshape(flat, H),
+        B_m.reshape(flat), masks0.reshape(flat, H),
+        torch.zeros((flat, H), device=dev), torch.ones((flat, H), device=dev),
+        steps=alloc_steps)
+    T = res0.T_edge.reshape(S, M)
+    E = res0.E_edge.reshape(S, M)
+    tb, tf = tb.reshape(S, M, H), tf.reshape(S, M, H)
+    cur = _objective(T, E, T_cl, E_cl, lam)
+
+    def take(a, idx):                    # a (S, H), idx (S, K) -> (S, K)
+        return torch.gather(a, 1, idx)
+
+    kinds, budgets = _round_plan(n_transfer, n_exchange, K)
+    for j, (kind, k_budget) in enumerate(zip(kinds, budgets)):
+        if draws is None:
+            raw_t = permutation_prefix(words, (j, 0), H * M, K)
+            raw_e = permutation_prefix(words, (j, 1), H * H, K)
+        else:
+            raw_t, raw_e = draws[0][:, j], draws[1][:, j]
+        h_t, dst = raw_t // M, raw_t % M
+        src = take(assign, h_t)
+        h1, h2 = raw_e // H, raw_e % H
+        a1, a2 = take(assign, h1), take(assign, h2)
+        # unified move layout: device d0 -> edge v0, device d1 -> edge v1
+        # (transfer: d0 == d1 == the moved device), affected edges (e0, e1)
+        if kind == _TRANSFER:
+            d0 = d1 = h_t
+            v0 = v1 = dst
+            e0, e1, valid = src, dst, src != dst
+        else:
+            d0, d1, v0, v1 = h1, h2, a2, a1
+            e0, e1, valid = a1, a2, (h1 != h2) & (a1 != a2)
+        valid = valid & (rowsK < int(k_budget))
+
+        cand = assign[:, None, :].repeat(1, K, 1)           # (S, K, H)
+        cand.scatter_(2, d0[..., None], v0[..., None])
+        cand.scatter_(2, d1[..., None], v1[..., None])
+        edges = torch.stack([e0, e1], dim=-1)               # (S, K, 2)
+        masks = cand[:, :, None, :] == edges[..., None]     # (S, K, 2, H)
+        li = lanes[:, None, None]
+        rows = S * K * 2
+
+        def trial(x):                    # (S, H) -> (S·K·2, H)
+            return x[:, None, None].expand(S, K, 2, H).reshape(rows, H)
+
+        res, (tb_f, tf_f) = ra.allocate_batch_warm(
+            sp, trial(u), trial(D), trial(p), gT[li, edges].reshape(rows, H),
+            B_m[li, edges].reshape(rows), masks.reshape(rows, H),
+            tb[li, edges].reshape(rows, H), tf[li, edges].reshape(rows, H),
+            steps=warm)
+        Tn = res.T_edge.reshape(S, K, 2)
+        En = res.E_edge.reshape(S, K, 2)
+        tb_n, tf_n = tb_f.reshape(S, K, 2, H), tf_f.reshape(S, K, 2, H)
+
+        T2 = T[:, None].repeat(1, K, 1).scatter(2, edges, Tn)    # (S, K, M)
+        E2 = E[:, None].repeat(1, K, 1).scatter(2, edges, En)
+        J = torch.where(valid, _objective(T2, E2, T_cl[:, None],
+                                          E_cl[:, None], lam), torch.inf)
+        order = torch.argsort(J, dim=1, stable=True)
+
+        def srt(a):
+            return torch.take_along_dim(
+                a, order.reshape((S, K) + (1,) * (a.dim() - 2)), dim=1)
+
+        T, E, cur, acc, _ = _accept_scan_core(
+            srt(J), srt(edges), srt(Tn), srt(En), T, E, cur, T_cl, E_cl,
+            lam, srt(valid), accept_top=accept_top)
+
+        # commit the accepted moves in sorted order; accepted sets are
+        # edge-disjoint hence device-disjoint, so the round-start (d, v)
+        # values compose exactly
+        for i in range(K):
+            idx = order[:, i:i + 1]                         # (S, 1)
+            on = acc[:, i:i + 1]
+            for d, v in ((d0, v0), (d1, v1)):
+                di = take(d, idx)
+                assign.scatter_(1, di, torch.where(on, take(v, idx),
+                                                   take(assign, di)))
+            ei = edges[lanes, idx[:, 0]]                    # (S, 2)
+            keep = on[..., None]
+            tb[lanes[:, None], ei] = torch.where(
+                keep, tb_n[lanes, idx[:, 0]], tb[lanes[:, None], ei])
+            tf[lanes[:, None], ei] = torch.where(
+                keep, tf_n[lanes, idx[:, 0]], tf[lanes[:, None], ei])
+    return assign, cur

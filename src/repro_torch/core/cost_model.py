@@ -245,9 +245,11 @@ def round_cost_gathered(sp: SystemParams, u, D, p, g_sel, g_cloud, assign,
                         b, f, M: int, model_bits=None):
     """(13)/(14) from pre-gathered cohort tensors.
 
-    u, D, p, g_sel, b, f: (H,) for the scheduled cohort, with g_sel the
-    gain of each device to its *assigned* edge; assign: (H,) int64 edge
-    ids; g_cloud: (M,). Returns (T_i, E_i, T_m, E_m).
+    u, D, p, g_sel, b, f: (..., H) for the scheduled cohort, with g_sel
+    the gain of each device to its *assigned* edge; assign: (..., H)
+    int64 edge ids; g_cloud: (..., M). Leading axes are independent
+    lanes (the sweep's). Returns (T_i, E_i, T_m, E_m): (...) and
+    (..., M).
 
     Per-edge reductions are scatter-reduces over the assignment ids
     (O(H), no (H, M) one-hot), into zeros, so an edge with no assigned
@@ -257,14 +259,15 @@ def round_cost_gathered(sp: SystemParams, u, D, p, g_sel, g_cloud, assign,
     """
     tc = t_cmp(sp, u, D, f) + t_com(sp, b, g_sel, p, model_bits)
     ec = e_cmp(sp, u, D, f) + e_com(sp, b, g_sel, p, model_bits)
-    zeros = torch.zeros(M, dtype=torch.float64, device=tc.device)
-    T_edge = sp.Q * zeros.to(tc.dtype).scatter_reduce(0, assign, tc,
-                                                      "amax")     # (M,)
-    E_edge = sp.Q * zeros.scatter_add(0, assign, ec.double()).to(ec.dtype)
+    zeros = torch.zeros(tc.shape[:-1] + (M,), dtype=torch.float64,
+                        device=tc.device)
+    T_edge = sp.Q * zeros.to(tc.dtype).scatter_reduce(-1, assign, tc,
+                                                      "amax")  # (..., M)
+    E_edge = sp.Q * zeros.scatter_add(-1, assign, ec.double()).to(ec.dtype)
     T_cl, E_cl = cloud_cost(sp, g_cloud, model_bits)
     T_m = T_cl + T_edge
     E_m = E_cl + E_edge
-    return torch.max(T_m), torch.sum(E_m), T_m, E_m
+    return torch.amax(T_m, -1), torch.sum(E_m, -1), T_m, E_m
 
 
 def round_cost(sp: SystemParams, pop: Population, sched_idx, assign, b, f,

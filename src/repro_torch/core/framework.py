@@ -9,7 +9,9 @@ Per global iteration i:
   5. evaluate; stop when the target accuracy is reached.
 
 Steps 3+4 plus the cost bookkeeping (13)/(14) are ``round_step_core``
-(``engine="fused"``: one batched allocation over all edges). The
+(``engine="fused"``: one batched allocation over all edges), the one-lane
+case of ``round_step_lanes``, the round body of the multi-lane sweep
+(``core/sweep.py``). The
 ``engine="sequential"`` oracle solves the M allocations one by one and
 runs Algorithm 1 with the plain aggregation. ``FrameworkConfig(
 agg_kernel=True)`` routes the Algorithm-1 edge/cloud aggregation through
@@ -42,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,12 +57,96 @@ from repro_torch.core import resource as ra
 from repro_torch.core.assignment import (DRLAssigner, GeoAssigner,
                                          HFELAssigner)
 from repro_torch.core.clustering import adjusted_rand_index
-from repro_torch.core.hfl import hfl_global_iteration_core, pad_device_data
+from repro_torch.core.hfl import (hfl_global_iteration_core,
+                                  hfl_global_iteration_lanes, pad_device_data)
 from repro_torch.core.scheduling import (FedAvgScheduler, IKCScheduler,
                                          VKCScheduler, clustering_cost,
                                          run_device_clustering)
 from repro_torch.data.partition import FederatedData
 from repro_torch.utils import Stopwatch, phase, resolve_device, tree_bytes
+
+
+def round_step_lanes(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
+                     g_cloud, B_m, X, y, mask, sizes, assign, lr, *,
+                     M: int, L: int, Q: int, alloc_steps: int,
+                     agg_kernel: bool = False, train_only: bool = False,
+                     done=None, codec: Optional[comp.CompressionConfig] = None,
+                     codec_state=None,
+                     noise: Optional[Sequence[comp.NoiseSource]] = None,
+                     stopwatch: Optional[Stopwatch] = None):
+    """One global iteration minus scheduling and assignment, for S
+    independent lanes at once (the sweep's round body;
+    :func:`round_step_core` is its S=1 case).
+
+    Inputs are pre-gathered for each lane's scheduled cohort: u/D/p/sizes
+    (S, H), g (S, H, M) gains to every edge, g_cloud/B_m (S, M),
+    X/y/mask (S, H, Dmax, ...), assign (S, H) int64; params leaves
+    (S, ...). Builds the per-edge masks, solves all S·M allocations (27)
+    in one batch, prices each lane's round (13)/(14) and runs the
+    lane-batched Algorithm 1. Returns (new_params, (T_i, E_i, T_m, E_m,
+    b, f)) with T_i/E_i (S,), T_m/E_m (S, M), b/f (S, H).
+
+    ``train_only`` skips the allocation and the pricing (all costs 0).
+    ``done`` (S,) bool marks lanes that no longer train: their params
+    (and codec residuals) pass through unchanged and their T_i/E_i are
+    0. With an active ``codec``, ``sp`` must already carry the codec's
+    per-message bits (``compression.message_bits``) so the allocation
+    and eqs. (7)-(12) price the compressed payload; ``codec_state`` is
+    ``(dev_resid, edge_resid)`` for the cohorts (S, H, ...) and the edges
+    (S, M, ...), and ``noise`` one int8 noise source a lane. The return
+    then becomes ``(new_params, (new_dev_resid, new_edge_resid), aux)``.
+    """
+    S, H = assign.shape
+    dev = assign.device
+    if train_only:
+        zeros = torch.zeros((S,), dtype=torch.float32, device=dev)
+        T_i = E_i = zeros
+        T_m = E_m = zeros[:, None].expand(S, M)
+        b = f = zeros[:, None].expand(S, H)
+    else:
+        with phase(stopwatch, "allocate"):
+            edge_mask = assign[:, None, :] == torch.arange(
+                M, device=dev)[None, :, None]                    # (S, M, H)
+
+            def rows(x):               # (S, H) -> (S·M, H): one row an edge
+                return x[:, None, :].expand(S, M, H).reshape(S * M, H)
+
+            res = ra.allocate_batch(
+                sp, rows(u), rows(D), rows(p),
+                g.transpose(1, 2).reshape(S * M, H), B_m.reshape(S * M),
+                edge_mask.reshape(S * M, H), steps=alloc_steps)
+            sel = assign[:, None, :]
+            b = res.b.reshape(S, M, H).gather(1, sel)[:, 0]      # (S, H)
+            f = res.f.reshape(S, M, H).gather(1, sel)[:, 0]
+            g_sel = g.gather(2, assign[..., None])[..., 0]
+            T_i, E_i, T_m, E_m = cm.round_cost_gathered(
+                sp, u, D, p, g_sel, g_cloud, assign, b, f, M)
+    compress = codec is not None and codec.active
+    if compress:
+        dev_resid, edge_resid = codec_state
+        new_params, new_dev, new_edge = hfl_global_iteration_lanes(
+            apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q,
+            lr=lr, agg_kernel=agg_kernel, codec=codec, dev_resid=dev_resid,
+            edge_resid=edge_resid, noise=noise, stopwatch=stopwatch)
+    else:
+        new_params = hfl_global_iteration_lanes(
+            apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q,
+            lr=lr, agg_kernel=agg_kernel, stopwatch=stopwatch)
+    if done is not None:
+        def freeze(old, new):
+            return {k: torch.where(
+                done.reshape((S,) + (1,) * (v.dim() - 1)), old[k], v)
+                for k, v in new.items()}
+        new_params = freeze(params, new_params)
+        T_i = torch.where(done, 0.0, T_i)
+        E_i = torch.where(done, 0.0, E_i)
+        if compress:
+            new_dev = freeze(dev_resid, new_dev)
+            new_edge = freeze(edge_resid, new_edge)
+    aux = (T_i, E_i, T_m, E_m, b, f)
+    if compress:
+        return new_params, (new_dev, new_edge), aux
+    return new_params, aux
 
 
 def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
@@ -71,44 +157,103 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
                     codec_state=None,
                     noise: Optional[comp.NoiseSource] = None,
                     stopwatch: Optional[Stopwatch] = None):
-    """One global iteration minus scheduling and assignment.
+    """One global iteration minus scheduling and assignment: the S=1 lane
+    of :func:`round_step_lanes`.
 
     Inputs are pre-gathered for the scheduled cohort: u/D/p/sizes (H,),
     g (H, M) gains to every edge, X/y/mask (H, Dmax, ...), assign (H,)
-    int64. Builds the per-edge masks, solves the M allocations (27) in
-    one batch, prices the round (13)/(14) and runs Algorithm 1. Returns
-    (new_params, (T_i, E_i, T_m, E_m, b, f)).
-
-    With an active ``codec``, ``sp`` must already carry the codec's
-    per-message bits (``compression.message_bits``) so the allocation
-    and eqs. (7)-(12) price the compressed payload; ``codec_state`` is
-    ``(dev_resid, edge_resid)`` for the cohort (H, ...) and the edges
-    (M, ...), and ``noise`` the round's int8 noise source. The return
-    then becomes ``(new_params, (new_dev_resid, new_edge_resid), aux)``.
+    int64. Returns (new_params, (T_i, E_i, T_m, E_m, b, f)); with an
+    active ``codec`` (``codec_state`` the cohort's (H, ...) and the
+    edges' (M, ...) residuals, ``noise`` the round's int8 noise source)
+    ``(new_params, (new_dev_resid, new_edge_resid), aux)``.
     """
-    H = assign.shape[0]
-    with phase(stopwatch, "allocate"):
-        edge_mask = assign[None, :] == torch.arange(
-            M, device=assign.device)[:, None]                   # (M, H)
-        res = ra.allocate_batch(
-            sp, u.expand(M, H), D.expand(M, H), p.expand(M, H), g.T, B_m,
-            edge_mask, steps=alloc_steps)
-        b, f = ra.select_device_allocation(res, assign)         # (H,) each
-        g_sel = g[torch.arange(H, device=assign.device), assign]
-        T_i, E_i, T_m, E_m = cm.round_cost_gathered(
-            sp, u, D, p, g_sel, g_cloud, assign, b, f, M)
-    if codec is not None and codec.active:
-        dev_resid, edge_resid = codec_state
-        new_params, dev_resid, edge_resid = hfl_global_iteration_core(
-            apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q,
-            lr=lr, agg_kernel=agg_kernel, codec=codec, dev_resid=dev_resid,
-            edge_resid=edge_resid, noise=noise, stopwatch=stopwatch)
-        return new_params, (dev_resid, edge_resid), (T_i, E_i, T_m, E_m,
-                                                     b, f)
-    new_params = hfl_global_iteration_core(
-        apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q, lr=lr,
-        agg_kernel=agg_kernel, stopwatch=stopwatch)
-    return new_params, (T_i, E_i, T_m, E_m, b, f)
+    def lane(tree):
+        return {k: v[None] for k, v in tree.items()}
+
+    def unlane(tree):
+        return {k: v[0] for k, v in tree.items()}
+
+    compress = codec is not None and codec.active
+    out = round_step_lanes(
+        apply_fn, sp, lane(params), u[None], D[None], p[None], g[None],
+        g_cloud[None], B_m[None], X[None], y[None], mask[None], sizes[None],
+        assign[None], lr, M=M, L=L, Q=Q, alloc_steps=alloc_steps,
+        agg_kernel=agg_kernel, codec=codec,
+        codec_state=(tuple(lane(t) for t in codec_state) if compress
+                     else None),
+        noise=[noise] if compress else None, stopwatch=stopwatch)
+    aux = tuple(a[0] for a in out[-1])
+    if compress:
+        return unlane(out[0]), tuple(unlane(t) for t in out[1]), aux
+    return unlane(out[0]), aux
+
+
+def build_scheduler(name: str, fed: FederatedData, sp: cm.SystemParams,
+                    H: int, K: int = 10, lr: float = 0.01, seed: int = 0,
+                    use_kernel: bool = False,
+                    pop: Optional[cm.Population] = None,
+                    arch: str = "hfl-cnn",
+                    labels: Optional[np.ndarray] = None, device="cuda", *,
+                    generator: Optional[torch.Generator] = None,
+                    params: Optional[Mapping] = None,
+                    data: Optional[Sequence[torch.Tensor]] = None):
+    """Scheduler construction, shared by ``HFLFramework`` and the sweeps.
+
+    IKC clusters with the arch's auxiliary mini model ξ on its
+    clustering crop, VKC with the full model, FedAvg samples uniformly.
+    A ``torch.Generator`` seeded with ``seed`` draws the full init, the
+    mini init, the crops and the kmeans++ picks in that order, on
+    ``device`` (``use_kernel`` routes the distances through K2). A caller
+    that has drawn the full init already passes its ``generator``, the
+    full model (``params``) and the padded ``data`` (X, y, mask) to go
+    on with its own stream. ``labels`` injects the clustering's outcome
+    (e.g. the reference's) instead. With ``pop`` given, returns
+    (scheduler, clustering_stats) with the Table-II quantities (ari,
+    delay_s, energy_j, aux_bits; empty for FedAvg); otherwise just the
+    scheduler.
+    """
+    if name == "fedavg":
+        sched = FedAvgScheduler(fed.n_devices, H)
+        return (sched, {}) if pop is not None else sched
+    if name not in ("ikc", "vkc"):
+        raise ValueError(f"unknown scheduler {name!r}")
+    spec = get_hfl_spec(arch)
+    dev = resolve_device(device)
+    gen = (generator if generator is not None
+           else torch.Generator().manual_seed(seed))
+    full = params if params is not None else spec.init_fn(gen, fed, dev)
+    full_bits = tree_bytes(full) * 8
+    if name == "ikc":
+        mini = spec.mini_init_fn(gen, fed, dev)
+        aux_bits = tree_bytes(mini) * 8
+        compute_scale = aux_bits / max(1, full_bits)
+    else:
+        aux_bits, compute_scale = full_bits, 1.0
+    if labels is None:
+        X, y, mask = (data if data is not None
+                      else pad_device_data(fed, device=dev))
+        if name == "ikc":
+            labels, _ = run_device_clustering(
+                spec.mini_apply_fn, mini, spec.mini_preprocess_fn(X, gen),
+                y, mask, K, sp.L, lr, use_kernel=use_kernel, generator=gen)
+        else:
+            labels, _ = run_device_clustering(
+                spec.apply_fn, full, X, y, mask, K, sp.L, lr,
+                use_kernel=use_kernel, generator=gen)
+    labels = np.asarray(labels)
+    if labels.shape != (fed.n_devices,):
+        raise ValueError(f"labels must have shape ({fed.n_devices},), "
+                         f"got {labels.shape}")
+    sched = (IKCScheduler if name == "ikc" else VKCScheduler)(
+        labels, max(1, H // K))
+    if pop is None:
+        return sched
+    delay, energy = clustering_cost(sp, pop, aux_bits,
+                                    compute_scale=compute_scale)
+    stats = {"ari": adjusted_rand_index(labels, fed.majority_class),
+             "delay_s": delay, "energy_j": energy,
+             "aux_bits": float(aux_bits)}
+    return sched, stats
 
 
 @dataclasses.dataclass
@@ -195,47 +340,16 @@ class HFLFramework:
     # ------------------------------------------------------------ setup
 
     def _setup_scheduler(self, labels):
-        cfg, fed, sp = self.cfg, self.fed, self.sp
-        h = max(1, cfg.H // cfg.K)
-        if cfg.scheduler == "fedavg":
-            self.scheduler = FedAvgScheduler(fed.n_devices, cfg.H)
-            return
+        cfg = self.cfg
         sw = Stopwatch(self.device)
         with sw.phase("cluster"):
-            if cfg.scheduler == "ikc":
-                # auxiliary mini model ξ on 1x10x10 random crops
-                mini_params = self.spec.mini_init_fn(self.generator, fed,
-                                                     self.device)
-                compute_scale = (tree_bytes(mini_params)
-                                 / max(1, tree_bytes(self.model_params)))
-                aux_bits = tree_bytes(mini_params) * 8
-                if labels is None:
-                    crop = self.spec.mini_preprocess_fn(self.X,
-                                                        self.generator)
-                    labels, _ = run_device_clustering(
-                        self.spec.mini_apply_fn, mini_params, crop, self.y,
-                        self.mask, cfg.K, sp.L, cfg.lr,
-                        use_kernel=cfg.use_kernel, generator=self.generator)
-            else:  # vkc: heavyweight global model as auxiliary model
-                aux_bits, compute_scale = self.model_bits, 1.0
-                if labels is None:
-                    labels, _ = run_device_clustering(
-                        self.apply_fn, self.model_params, self.X, self.y,
-                        self.mask, cfg.K, sp.L, cfg.lr,
-                        use_kernel=cfg.use_kernel, generator=self.generator)
-        labels = np.asarray(labels)
-        if labels.shape != (fed.n_devices,):
-            raise ValueError(f"labels must have shape ({fed.n_devices},), "
-                             f"got {labels.shape}")
-        policy = IKCScheduler if cfg.scheduler == "ikc" else VKCScheduler
-        self.scheduler = policy(labels, h)
-        self.setup_seconds = dict(sw.seconds)
-        delay, energy = clustering_cost(sp, self.pop, aux_bits,
-                                        compute_scale=compute_scale)
-        self.clustering_stats = {
-            "ari": adjusted_rand_index(labels, fed.majority_class),
-            "delay_s": delay, "energy_j": energy,
-            "aux_bits": float(aux_bits)}
+            self.scheduler, self.clustering_stats = build_scheduler(
+                cfg.scheduler, self.fed, self.sp, cfg.H, K=cfg.K, lr=cfg.lr,
+                use_kernel=cfg.use_kernel, pop=self.pop, arch=cfg.arch,
+                labels=labels, device=self.device, generator=self.generator,
+                params=self.model_params, data=(self.X, self.y, self.mask))
+        if cfg.scheduler != "fedavg":
+            self.setup_seconds = dict(sw.seconds)
 
     def _setup_assigner(self, drl_params):
         a = self.cfg.assigner

@@ -58,12 +58,13 @@ def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
     """
     any_dev = torch.any(mask, dim=-1)
     neg = -1e9
-    floor_f = torch.tensor(1e6, dtype=u.dtype, device=u.device)
 
     def unpack(tb, tf):
         logits = torch.where(mask, tb, neg)
         b = B_m[..., None] * torch.softmax(logits, dim=-1)
-        f = torch.maximum(sp.f_max * torch.sigmoid(tf), floor_f)
+        # a scalar floor, not a device tensor made from a host value: that
+        # copy would synchronise the host with the device on every solve
+        f = torch.clamp_min(sp.f_max * torch.sigmoid(tf), 1e6)
         return b, f
 
     def smooth_obj(tb, tf, tau):

@@ -10,13 +10,18 @@ before its cluster-mates were scheduled once.
 All schedulers expose ``schedule(rng) -> np.ndarray[H]`` of device
 indices and ``topup_to(selected, target, rng)`` (Alg. 3 lines 12-15 /
 Alg. 4 lines 21-24). Cluster membership lives in one flat CSR index
-array, and a round is O(H log h) array ops.
+array, and a round is O(H log h) array ops. ``TracedFedAvg`` is the
+device-side FedAvg draw of the fused sweep.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.utils import permutation_prefix, resolve_device
 
 
 class Scheduler:
@@ -397,3 +402,47 @@ class IKCScheduler(Scheduler):
                 st.order[last], st.order[p] = d, other
                 st.pos[d], st.pos[other] = last, p
                 self.nf[k] -= 1
+
+
+# --------------------------------------------------------------------------
+# traced scheduler (fused sweep)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TracedFedAvg:
+    """Device-side FedAvg scheduler for the fused sweep (port of the
+    reference's ``TracedFedAvg``).
+
+    The host schedulers above are numpy state machines; this one keeps
+    its per-lane state on the device, so a fused sweep draws every
+    round's cohort with no host round trip. State: an (S, 2) int64
+    tensor of (lane seed, round). ``step`` takes the first H of a random
+    permutation of the N devices per lane, a counter-based draw keyed by
+    (lane seed, round) alone (``utils.permutation_prefix``), so a lane's
+    schedule does not depend on which lanes share its batch. It is the
+    uniform without-replacement draw of ``FedAvgScheduler``, matching it
+    in distribution, not bitwise (as the reference's JAX stream does).
+    """
+    n_devices: int
+    H: int
+
+    def __post_init__(self):
+        if not 0 < self.H <= self.n_devices:
+            raise ValueError(f"need 0 < H <= N, got H={self.H}, "
+                             f"N={self.n_devices}")
+
+    def init_state(self, seeds, device="cuda") -> torch.Tensor:
+        """(S, 2) int64 state for lane seeds ``seeds`` (an int is one
+        lane), on ``device``."""
+        seeds = np.atleast_1d(np.asarray(seeds, np.int64))
+        state = np.stack([seeds, np.zeros_like(seeds)], axis=1)
+        return torch.from_numpy(state).to(resolve_device(device))
+
+    def step(self, state: torch.Tensor):
+        """One scheduling round: (S, 2) state -> (next state, (S, H)
+        int64 distinct device ids per lane)."""
+        sched = permutation_prefix(state, (), self.n_devices, self.H)
+        # + (0, 1): the round advances (arange, not a tensor built from a
+        # host list, whose copy to the device would synchronise)
+        return state + torch.arange(2, device=state.device), sched

@@ -19,6 +19,12 @@ run as PyTorch ops): the warm allocator at 30 Adam steps to rtol 1e-4
 reference holds it); one D3QN update wave (5 Adam steps, hidden 16) to
 atol 1e-5 in the params.
 
+The sweep: one lane-batched hop (4 lanes x the CNN's 4 leaves) against
+the plain version at the 1e-5 above; ``TracedFedAvg`` and the traced
+geo assignment equal to their CPU results (integer hashing and the same
+f32 distances); a 2-round fused geo sweep whose device window raises on
+any host synchronisation, equal to the per-round oracle.
+
 Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
 before the dot, the plain version divides the scores: the reference's
 own figure). bf16: both sides compute in f32 from the same bf16 inputs
@@ -499,3 +505,90 @@ def test_d3qn_update_wave_card_matches_cpu(cuda):
     for a, b in zip(tree_leaves(pg) + tree_leaves(tg),
                     tree_leaves(pc) + tree_leaves(tc)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------ the sweep
+
+CNN_LEAVES = (375, 10500, 101248, 2260)
+
+
+@pytest.mark.cuda
+def test_lane_batched_hop_matches_plain(cuda):
+    """One edge hop of a 4-lane sweep (M=5, H=50, the CNN's four leaves)
+    in one launch, against the plain version."""
+    mask, sizes, _ = _agg_inputs(0, 4, 5, 50, 1, (), cuda)
+    leaves = [_agg_inputs(i + 1, 4, 5, 50, P, (), cuda)[2]
+              for i, P in enumerate(CNN_LEAVES)]
+    n0 = ha.masked_aggregate_leaves_batched_cuda.launches
+    got = ha.masked_aggregate_leaves_batched(mask, sizes, leaves)
+    torch.cuda.synchronize()
+    assert ha.masked_aggregate_leaves_batched_cuda.launches == n0 + 1
+    for g, x in zip(got, leaves):
+        torch.testing.assert_close(
+            g, ha.masked_aggregate_batched_ref(mask, sizes, x),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_traced_schedule_and_geo_card_match_cpu(cuda):
+    from repro_torch.core.assignment.geo import geo_assign_traced
+    from repro_torch.core.scheduling import TracedFedAvg
+    ts = TracedFedAvg(100, 50)
+    stc, stg = ts.init_state([0, 1, 2, 3], "cpu"), ts.init_state(
+        [0, 1, 2, 3], cuda)
+    sp = tcm.SystemParams()
+    pops = [tcm.sample_population(sp, seed=s, device="cpu")
+            for s in range(4)]
+    dev_pos = torch.tensor(np.stack([p.dev_pos for p in pops]),
+                           dtype=torch.float32)
+    edge_pos = torch.tensor(np.stack([p.edge_pos for p in pops]),
+                            dtype=torch.float32)
+    for _ in range(3):
+        stc, sc = ts.step(stc)
+        stg, sg = ts.step(stg)
+        assert torch.equal(sg.cpu(), sc)
+        assert torch.equal(
+            geo_assign_traced(dev_pos.to(cuda), edge_pos.to(cuda), sg).cpu(),
+            geo_assign_traced(dev_pos, edge_pos, sc))
+
+
+@pytest.mark.cuda
+def test_fused_sweep_runs_without_host_sync(cuda, monkeypatch):
+    """A 2-round fused geo sweep on a small world: the whole device
+    window under ``torch.cuda.set_sync_debug_mode("error")``, equal to
+    the per-round oracle."""
+    from repro_torch.core import sweep as tsw
+    from repro_torch.data import make_dataset, partition_noniid
+    sp = tcm.SystemParams(n_devices=12, n_edges=3, L=2, Q=2)
+    X, y, Xt, yt = make_dataset("fmnist_syn", n_train=240, n_test=60,
+                                seed=0)
+    worlds = [(tcm.sample_population(sp, seed=s, device=cuda),
+               partition_noniid(X, y, Xt, yt, n_devices=12,
+                                size_range=(10, 16), seed=s))
+              for s in range(2)]
+    runner = tsw.SweepRunner(sp, worlds, lr=0.02, alloc_steps=30,
+                             agg_kernel=True, device=cuda)
+    real = tsw.sweep_scan
+    windows = []
+
+    def guarded(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        windows.append(kw["n_rounds"])
+        return out
+    monkeypatch.setattr(tsw, "sweep_scan", guarded)
+
+    def scheds():
+        return [tsw.build_scheduler("fedavg", w[1], sp, 6, device=cuda)
+                for w in worlds]
+    fused = runner.run(scheds(), 2, fused=True)
+    oracle = runner.run(scheds(), 2, fused="oracle")
+    assert windows == [2, 1, 1]
+    assert fused["n_dispatches"] == 1 and oracle["n_dispatches"] == 2
+    for k in ("acc", "T_i", "E_i", "iters"):
+        np.testing.assert_array_equal(fused[k], oracle[k], err_msg=k)
+    assert np.isfinite(fused["acc"]).all() and (fused["T_i"] > 0).all()

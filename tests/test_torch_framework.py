@@ -209,6 +209,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
 assert len(names) >= 20, names
+assert {"repro_torch.core.sweep", "repro_torch.core.assignment.hfel",
+        "repro_torch.core.scheduling.schedulers"} <= set(names), names
+import repro_torch.core.sweep as sweep
+assert sweep.SweepRunner is repro_torch.SweepRunner
 assert not bad, bad
 print("ok", len(names))
 """
