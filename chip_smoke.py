@@ -126,6 +126,26 @@ drawn on the card from a seed, bf16 compute):
    teacher-forced logits against the kernel prefill of the prompt (the
    same limits as A); prefill and decode seconds and tokens/s. Then one
    kernel prefill and one decode step under ``torch.profiler``.
+12. The event-driven async engine (``AsyncHFLEngine``) and the streaming
+   serve CLI, which run no kernel (the reference's async path has no
+   Pallas call), on the Table-I world at full CNN width (N=100, M=5,
+   D_n in [400, 700], H=50, fedavg cohort, geo assignment, 200-step
+   allocations), the launch counters zeroed before a and read after c
+   (every count 0):
+   a. one always-on async round against ``round_step_core`` on the same
+      cohort and assignment from the same params: b and f equal, T_i
+      and E_i to rtol 1e-5, params within PARAM_TOL, Q·H = 250 updates,
+      no stale update and no forced flush; wall, dispatches;
+   b. ASYNC_ROUNDS rounds of that world under the serve CLI's
+      ``stationary`` availability (10 % offline at t=0, sessions of
+      900 s, gaps of 120 s, 20 % 4x stragglers) with 5-slot buffers:
+      n_updates <= Q·H, aborted tasks and wasted energy >= 0, the
+      virtual clock moving forward; dispatches and wall a round;
+   c. ``run_serve`` at the CLI's defaults (40 devices, 5 edges, H=20,
+      stationary, 3 rounds) checkpointing every round into a temporary
+      directory: one JSON line a round, the last checkpoint restored
+      bit for bit equal to the engine's params; then one int8 round;
+   d. one more always-on round under ``torch.profiler``.
 Each phase prints its peak device memory.
 
 The line before the last is a JSON object with one entry per kernel
@@ -229,6 +249,7 @@ SWEEP_LANES, SWEEP_ROUNDS = 4, 3   # the sweep phase's lanes and host rounds
 # the depth cut that keeps the script near 400 s once the sweep phase
 # runs: D3QN waves (3 before the sweep phase)
 D3QN_WAVES = 2
+ASYNC_ROUNDS = 2        # phase 12b's rounds under the stationary preset
 
 
 def check(cond, msg):
@@ -1250,6 +1271,132 @@ def _leaves(tree):
     return [tree]
 
 
+def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
+    """Phase 12: the async engine and the serve CLI on the world (sp,
+    pop, fed) with cohorts of H; no kernel may launch."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.async_engine import AsyncConfig, AsyncHFLEngine
+    from repro_torch.core.framework import round_step_core
+    from repro_torch.launch import serve
+
+    cfg = AsyncConfig(H=H, scheduler="fedavg", alloc_steps=200, seed=0,
+                      device=pop.u.device.type)
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+
+    def timed_round(eng, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = eng.step_round(**kw)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        print(f"  async round {rec['round']}: " + json.dumps(rec))
+        return rec
+
+    # ---- a. always-on async round against the synchronous round
+    eng = AsyncHFLEngine(sp, pop, fed, cfg)
+    params = {k: v.clone() for k, v in eng.model_params.items()}
+    rec = timed_round(eng)
+    s = torch.from_numpy(eng.last_sched.astype(np.int64)).to(eng.device)
+    a = torch.from_numpy(eng.last_assign.astype(np.int64)).to(eng.device)
+    params, (T, E, _, _, b, f) = round_step_core(
+        eng.apply_fn, eng.sp, params, pop.u[s], pop.D[s], pop.p[s],
+        pop.g[s], pop.g_cloud, pop.B_m, eng.X[s], eng.y[s], eng.mask[s],
+        pop.D[s], a, cfg.lr, M=sp.n_edges, L=sp.L, Q=sp.Q,
+        alloc_steps=cfg.alloc_steps)
+    rel = [abs(rec["T_i"] - float(T)) / float(T),
+           abs(rec["E_i"] - float(E)) / float(E)]
+    dmax = max(float((eng.model_params[k] - params[k]).abs().max())
+               for k in params)
+    print(f"12a always-on async vs sync round: T_i {rec['T_i']} vs "
+          f"{float(T)}, E_i {rec['E_i']} vs {float(E)} (relative "
+          f"{rel[0]:.2e}, {rel[1]:.2e}), max |dparam| {dmax:.3e} (tolerance "
+          f"{PARAM_TOL}), {rec['n_dispatches']} dispatches, wall "
+          f"{rec['wall_s']:.3f} s")
+    check(torch.equal(eng.last_alloc[0], b) and
+          torch.equal(eng.last_alloc[1], f), "12a: b/f differ from sync")
+    check(max(rel) <= 1e-5, f"12a: T_i/E_i differ by {rel}")
+    check(dmax <= PARAM_TOL, f"12a: params differ by {dmax}")
+    check(rec["n_updates"] == sp.Q * cfg.H and rec["n_stale"] == 0
+          and rec["forced_flushes"] == 0, f"12a: accounting {rec}")
+    check(math.isfinite(rec["acc"]), "12a: accuracy not finite")
+    out["a"] = {k: rec[k] for k in ("wall_s", "n_dispatches", "T_i",
+                                    "E_i", "acc")}
+    out["a"]["max_dparam"] = dmax
+
+    # ---- b. the stationary preset, 5-slot buffers
+    trace = serve.build_trace("stationary", sp.n_devices, seed=0)
+    engb = AsyncHFLEngine(sp, pop, fed,
+                          dataclasses.replace(cfg, buffer_size=5),
+                          trace=trace)
+    recs, t_prev = [], 0.0
+    for _ in range(ASYNC_ROUNDS):
+        r = timed_round(engb)
+        check(r["n_updates"] <= sp.Q * cfg.H and r["n_aborted"] >= 0
+              and r["wasted_j"] >= 0 and r["t"] > t_prev
+              and all(math.isfinite(r[k]) for k in ("acc", "T_i", "E_i")),
+              f"12b: inconsistent record {r}")
+        t_prev = r["t"]
+        recs.append(r)
+    check(all(bool(torch.isfinite(v).all())
+              for v in engb.model_params.values()), "12b: params")
+    out["b"] = [{k: r[k] for k in ("wall_s", "n_dispatches", "n_updates",
+                                   "n_stale", "n_aborted", "T_i")}
+                for r in recs]
+    print("12b stationary, buffer 5: " + "; ".join(
+        f"round {i + 1}: {r['n_dispatches']} dispatches, {r['n_updates']} "
+        f"updates ({r['n_stale']} stale, {r['n_aborted']} aborted), wall "
+        f"{r['wall_s']:.3f} s" for i, r in enumerate(recs)))
+    del engb
+
+    # ---- c. the serve CLI at its defaults, checkpointing every round
+    with tempfile.TemporaryDirectory() as d:
+        lines, engines = [], []
+        t0 = time.perf_counter()
+        summary = serve.run_serve(traffic="stationary", rounds=3,
+                                  ckpt_every=1, ckpt_dir=d,
+                                  log=lines.append, engine_out=engines,
+                                  device=cfg.device)
+        serve_s = time.perf_counter() - t0
+        recs_c = [json.loads(line) for line in lines]
+        check([r["round"] for r in recs_c] == [1, 2, 3]
+              and summary["n_checkpoints"] == 3
+              and ckpt.latest_step(d) == 3, "12c: rounds or checkpoints")
+        params_c = engines[0].model_params
+        back = ckpt.restore_pytree(params_c, d)
+        check(all(np.array_equal(back[k], v.cpu().numpy())
+                  for k, v in params_c.items()),
+              "12c: the restored checkpoint differs from the params")
+    lines8 = []
+    serve.run_serve(traffic="stationary", rounds=1, codec="int8",
+                    log=lines8.append, device=cfg.device)
+    r8 = json.loads(lines8[0])
+
+    def bits_a_message(r):          # (updates + one upload an edge) msgs
+        return r["msg_bits"] / (r["n_updates"] + engines[0].pop.n_edges)
+    ratio = bits_a_message(recs_c[0]) / bits_a_message(r8)
+    print(f"12c run_serve (40 devices, H=20, stationary, 3 rounds, "
+          f"checkpoint a round): {serve_s:.3f} s, final acc "
+          f"{summary['final_acc']:.4f}, updates {summary['n_updates']}; "
+          f"checkpoint restored bit for bit; int8 round: {r8['n_updates']} "
+          f"updates, bits a message {ratio:.3f}x fewer")
+    check(ratio > 3.9, f"12c: int8 message ratio {ratio}")
+    out["c"] = {"serve_s": serve_s, "final_acc": summary["final_acc"],
+                "int8_msg_ratio": ratio}
+
+    read_counts("async phase (12a-c)", {})
+    print(f"async phase: peak memory {peak_gb(torch)}")
+
+    # ---- d. one profiled always-on round
+    profiled(torch, "async round (always-on, N=100, H=50)",
+             lambda: eng.step_round(), warm_up=False)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1510,6 +1657,18 @@ def main() -> int:
     lm = lm_phases(torch, rate, zero_counts, read_counts)
     kres["flash_attention"] = lm.pop("kernel")
     launches["flash_attention"] = lm["launches"]
+
+    # ------------------------------------------------ async (phase 12)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pop = sample_population(sp, seed=0)
+    X, y, Xt, yt = make_dataset("fmnist_syn")
+    fed = partition_noniid(X, y, Xt, yt, n_devices=sp.n_devices,
+                           size_range=(400, 700), seed=0)
+    async_out = async_phase(torch, sp, pop, fed, zero_counts, read_counts)
+    async_out["phase_s"] = time.perf_counter() - t0
+    print(f"async phase: {async_out['phase_s']:.1f} s; "
+          + json.dumps(async_out))
 
     # ----------------------------------------------------------- result
     src = "src/repro_torch/csrc/hier_agg.cu"

@@ -15,8 +15,8 @@ Module map (port -> reference):
 ``repro_torch.convert``                        (new) numpy <-> port parameter trees
 ``repro_torch.data.synthetic``                 ``repro.data.synthetic`` (make_dataset; numpy copy)
 ``repro_torch.data.partition``                 ``repro.data.partition`` (numpy copy)
-``repro_torch.core.cost_model``                ``repro.core.cost_model`` (eqs. 4-14, PopulationBatch;
-                                               no availability traces)
+``repro_torch.core.cost_model``                ``repro.core.cost_model`` (eqs. 4-14, PopulationBatch,
+                                               availability traces and samplers)
 ``repro_torch.models.layers``                  ``repro.models.layers`` (he_normal, dense/embed
                                                init, rmsnorm, RoPE, SwiGLU)
 ``repro_torch.models.cnn``                     ``repro.models.cnn``
@@ -62,6 +62,16 @@ Module map (port -> reference):
 ``repro_torch.core.sweep``                     ``repro.core.sweep`` (SweepRunner: host loop,
                                                lane batching, lane_chunk, fused engine,
                                                codec carries; no ``shard=True``)
+``repro_torch.core.traffic``                   ``repro.core.traffic`` (TrafficParams,
+                                               TrafficGenerator)
+``repro_torch.core.async_engine``              ``repro.core.async_engine`` (AsyncConfig,
+                                               AsyncHFLEngine: the event loop, codecs,
+                                               device and edge residuals)
+``repro_torch.checkpoint.ckpt``                ``repro.checkpoint.ckpt`` (save_pytree,
+                                               restore_pytree, latest_step; same layout)
+``repro_torch.launch.serve``                   ``repro.launch.serve`` (the streaming async-HFL
+                                               service CLI: build_world, build_trace,
+                                               run_serve)
 ``repro_torch.kernels.hier_agg.ops``           ``repro.kernels.hier_agg`` masked_aggregate,
                                                weighted_aggregate, masked_decode_aggregate
 ``repro_torch.kernels.kmeans_dist.ops``        ``repro.kernels.kmeans_dist`` pairwise_sq_dists
@@ -90,6 +100,10 @@ import importlib
 
 # entry points, imported on first use (``import repro_torch`` stays light)
 _EXPORTS = {
+    "AsyncConfig": "repro_torch.core.async_engine",
+    "AsyncHFLEngine": "repro_torch.core.async_engine",
+    "TrafficGenerator": "repro_torch.core.traffic",
+    "run_serve": "repro_torch.launch.serve",
     "HFLFramework": "repro_torch.core.framework",
     "FrameworkConfig": "repro_torch.core.framework",
     "SweepRunner": "repro_torch.core.sweep",

@@ -1,6 +1,7 @@
 """HFL system/cost model — paper §III-B, equations (4)–(14), Table I.
 
-Port of ``repro.core.cost_model`` (without the availability traces). All
+Port of ``repro.core.cost_model``, with the availability traces the
+async engine runs on (``AvailabilityTrace`` and its samplers). All
 quantities SI: seconds, joules, hertz, watts, bits. The wireless network
 is simulated: 128.1 + 37.6 log10(d_km) path loss with 8 dB log-normal
 shadowing, FDMA uplink (6), and static edge->cloud links (11)-(12).
@@ -10,7 +11,7 @@ order and cast to float32 tensors, so both packages see the same world.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -296,3 +297,151 @@ def round_msg_bits(sp: SystemParams, n_uplink_msgs, n_cloud_msgs,
     (``sp.model_bits`` by default)."""
     z = sp.model_bits if msg_bits is None else msg_bits
     return float((n_uplink_msgs + n_cloud_msgs) * z)
+
+
+# ------------------------------------------------- availability traces
+
+@dataclasses.dataclass(frozen=True)
+class AvailabilityParams:
+    """Intermittent-connectivity knobs for the async engine.
+
+    Devices follow an alternating-renewal (two-state Markov) process:
+    exponentially distributed online sessions of mean ``mean_up_s``
+    alternate with offline gaps of mean ``mean_down_s``. A
+    ``straggler_frac`` fraction of devices has every task latency
+    multiplied by ``straggler_scale``; ``jitter_sigma`` adds per-task
+    log-normal latency noise (drawn by the engine's host rng, not the
+    trace). The defaults are the degenerate always-on, no-straggler
+    setting under which the event-driven engine reproduces the
+    synchronous round.
+    """
+    p_offline0: float = 0.0                # fraction initially offline
+    mean_up_s: float = float("inf")        # mean online session [s]
+    mean_down_s: float = 60.0              # mean offline gap [s]
+    straggler_frac: float = 0.0            # fraction of slow devices
+    straggler_scale: float = 5.0           # their latency multiplier
+    jitter_sigma: float = 0.0              # per-task log-normal sigma
+
+
+def _draw(given, draw, shape, dtype) -> np.ndarray:
+    """``given`` (a caller's draws) as a numpy array of ``shape``, or
+    ``draw()`` (a CPU tensor) when it is None."""
+    out = np.asarray(draw().numpy() if given is None else given, dtype)
+    if out.shape != shape:
+        raise ValueError(f"draws of shape {out.shape}, expected {shape}")
+    return out
+
+
+def sample_straggler_scales(generator: torch.Generator,
+                            ap: AvailabilityParams, n: int,
+                            slow=None) -> np.ndarray:
+    """(n,) f32 per-device latency multipliers: ``straggler_scale`` where
+    a Bernoulli(``straggler_frac``) draw says slow, else 1. The draw is
+    ``uniform < straggler_frac`` on ``generator``; ``slow`` (n,) bool
+    injects its outcome instead (e.g. the reference's ``jax.random``
+    draw)."""
+    slow = _draw(slow, lambda: torch.rand(n, generator=generator)
+                 < np.float32(ap.straggler_frac), (n,), bool)
+    return np.where(slow, np.float32(ap.straggler_scale), np.float32(1.0))
+
+
+def _cumsum_blocks16(x: np.ndarray) -> np.ndarray:
+    """f32 cumulative sum along the last axis, in the reference's order:
+    XLA's CPU reduce-window rewrite sums blocks of 16 sequentially, scans
+    the block totals the same way (recursively) and adds each block's
+    carry last. A plain sequential f32 sum differs in the last bits from
+    the 17th element on."""
+    n = x.shape[-1]
+    if n <= 16:
+        return np.cumsum(x, axis=-1, dtype=np.float32)
+    nb = -(-n // 16)
+    pad = np.zeros(x.shape[:-1] + (nb * 16 - n,), np.float32)
+    blocks = np.concatenate([x, pad], -1).reshape(x.shape[:-1] + (nb, 16))
+    inner = np.cumsum(blocks, axis=-1, dtype=np.float32)
+    totals = _cumsum_blocks16(inner[..., -1])
+    inner[..., 1:, :] += totals[..., :-1, None]
+    return inner.reshape(x.shape[:-1] + (nb * 16,))[..., :n]
+
+
+def sample_toggle_times(generator: torch.Generator, ap: AvailabilityParams,
+                        n: int, max_toggles: int = 64, uniforms=None,
+                        exponentials=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Alternating-renewal availability flips.
+
+    Returns ``(init_up, toggles)``: ``init_up`` (n,) bool initial state
+    (``uniform >= p_offline0``), ``toggles`` (n, max_toggles) f32
+    ascending flip times. Holding time j is Exp(mean_up) while the
+    device is up during period j, Exp(mean_down) while it is down; an
+    infinite mean (the always-on default) pushes every later flip to
+    +inf, so padding and "never flips" coincide. The (n,) uniforms and
+    the (n, max_toggles) unit exponentials are drawn on ``generator`` in
+    that order unless given (e.g. the reference's ``jax.random``
+    draws); the arithmetic is f32 as the reference's, so its draws give
+    its trace bit for bit.
+    """
+    u = _draw(uniforms, lambda: torch.rand(n, generator=generator), (n,),
+              np.float32)
+    e = _draw(exponentials, lambda: torch.empty(n, max_toggles).exponential_(
+        generator=generator), (n, max_toggles), np.float32)
+    init_up = u >= np.float32(ap.p_offline0)
+    j = np.arange(max_toggles)[None, :]
+    up_during = init_up[:, None] ^ (j % 2 == 1)      # state in period j
+    mean = np.where(up_during, np.float32(ap.mean_up_s),
+                    np.float32(ap.mean_down_s))
+    with np.errstate(invalid="ignore", over="ignore"):
+        return init_up, _cumsum_blocks16(e * mean)
+
+
+@dataclasses.dataclass
+class AvailabilityTrace:
+    """Host-side per-device availability trace (the async engine's input).
+
+    ``toggles[n]`` holds the ascending virtual times at which device n
+    flips between online and offline, +inf padded; ``init_up[n]`` is its
+    state at t=0 and ``latency_scale[n]`` multiplies every task latency
+    (straggler inflation). Build with :func:`sample_availability`, a
+    :class:`repro_torch.core.traffic.TrafficGenerator`, or
+    :meth:`always_on` (the degenerate parity trace). The layout is the
+    reference's (numpy float64 flips, bool ``init_up``), so a trace
+    passes between the packages unchanged.
+    """
+    init_up: np.ndarray        # (N,) bool state at t=0
+    toggles: np.ndarray        # (N, T) ascending flip times [s], inf-pad
+    latency_scale: np.ndarray  # (N,) per-device latency multiplier
+
+    @property
+    def n_devices(self) -> int:
+        return self.init_up.shape[0]
+
+    @classmethod
+    def always_on(cls, n: int) -> "AvailabilityTrace":
+        """Every device up forever at unit speed (sync parity trace)."""
+        return cls(init_up=np.ones(n, bool),
+                   toggles=np.full((n, 1), np.inf),
+                   latency_scale=np.ones(n))
+
+    def up_at(self, t: float) -> np.ndarray:
+        """(N,) bool availability at virtual time ``t``."""
+        flips = (self.toggles <= t).sum(axis=1)
+        return self.init_up ^ (flips % 2 == 1)
+
+    def toggles_after(self, n: int, t: float) -> np.ndarray:
+        """Device n's finite flip times strictly after ``t``, ascending."""
+        row = self.toggles[n]
+        return row[(row > t) & np.isfinite(row)]
+
+
+def sample_availability(ap: AvailabilityParams, n: int, seed: int = 0,
+                        max_toggles: int = 64, uniforms=None,
+                        exponentials=None, slow=None) -> AvailabilityTrace:
+    """Sample a host ``AvailabilityTrace``: the toggles, then the
+    straggler scales, from one ``torch.Generator`` seeded with ``seed``
+    (or from the given draws, as in :func:`sample_toggle_times` and
+    :func:`sample_straggler_scales`)."""
+    gen = torch.Generator().manual_seed(seed)
+    init_up, toggles = sample_toggle_times(gen, ap, n, max_toggles,
+                                           uniforms, exponentials)
+    scale = sample_straggler_scales(gen, ap, n, slow)
+    return AvailabilityTrace(init_up=init_up,
+                             toggles=toggles.astype(np.float64),
+                             latency_scale=scale.astype(np.float64))

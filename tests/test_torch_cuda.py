@@ -25,6 +25,14 @@ geo assignment equal to their CPU results (integer hashing and the same
 f32 distances); a 2-round fused geo sweep whose device window raises on
 any host synchronisation, equal to the per-round oracle.
 
+The async engine (no kernel of its own): an always-on round on the
+card against the same round on the CPU from the same weights (records
+to rtol 1e-5, params to atol 1e-4: the allocator and the training sum
+in other orders); the event loop of a churny round, uncompressed and
+int8, under ``torch.cuda.set_sync_debug_mode("error")`` between the
+round's one price read and its cloud aggregation; a checkpoint round
+trip of device params, bit for bit.
+
 Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
 before the dot, the plain version divides the scores: the reference's
 own figure). bf16: both sides compute in f32 from the same bf16 inputs
@@ -592,3 +600,101 @@ def test_fused_sweep_runs_without_host_sync(cuda, monkeypatch):
     for k in ("acc", "T_i", "E_i", "iters"):
         np.testing.assert_array_equal(fused[k], oracle[k], err_msg=k)
     assert np.isfinite(fused["acc"]).all() and (fused["T_i"] > 0).all()
+
+
+# ------------------------------------------------------- the async engine
+
+def _async_world(device):
+    from repro_torch.data import make_dataset, partition_noniid
+    sp = tcm.SystemParams(n_devices=10, n_edges=3, d_range=(30, 60), L=2,
+                          Q=3)
+    X, y, Xt, yt = make_dataset("fmnist_syn", n_train=300, n_test=120,
+                                seed=0)
+    return (sp, tcm.sample_population(sp, seed=0, device=device),
+            partition_noniid(X, y, Xt, yt, n_devices=10,
+                             size_range=(15, 25), seed=0))
+
+
+@pytest.mark.cuda
+def test_async_round_card_matches_cpu(cuda):
+    from repro_torch.core.async_engine import AsyncConfig, AsyncHFLEngine
+    kw = dict(H=6, alloc_steps=60, seed=3)
+    cpu = AsyncHFLEngine(*_async_world("cpu"), AsyncConfig(device="cpu",
+                                                           **kw))
+    init = {k: v.numpy() for k, v in cpu.model_params.items()}
+    card = AsyncHFLEngine(*_async_world(cuda), AsyncConfig(device="cuda",
+                                                           **kw),
+                          init_params=init)
+    rc, rg = cpu.step_round(), card.step_round()
+    for k in ("n_updates", "n_stale", "n_aborted", "forced_flushes",
+              "msg_bits", "n_dispatches"):
+        assert rg[k] == rc[k], k
+    for k in ("T_i", "E_i", "t"):
+        np.testing.assert_allclose(rg[k], rc[k], rtol=1e-5, err_msg=k)
+    assert abs(rg["acc"] - rc["acc"]) <= 1 / 120 + 1e-12
+    for k, v in cpu.model_params.items():
+        np.testing.assert_allclose(card.model_params[k].cpu().numpy(),
+                                   v.numpy(), rtol=0, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_async_event_loop_runs_without_host_sync(cuda, monkeypatch, codec):
+    """Every dispatch, toggle and flush of a churny round (stragglers,
+    dropouts, 1-slot buffers) runs with host synchronisation an error:
+    the mode is set once the round has read its prices and cleared
+    before the cloud aggregation."""
+    from repro_torch.core import async_engine as tae
+    from repro_torch.core.compression import CompressionConfig
+    ap = tcm.AvailabilityParams(p_offline0=0.2, mean_up_s=8.0,
+                                mean_down_s=4.0, straggler_frac=0.3,
+                                straggler_scale=3.0)
+    trace = tcm.sample_availability(ap, 10, seed=13, max_toggles=256)
+    eng = tae.AsyncHFLEngine(
+        *_async_world(cuda),
+        tae.AsyncConfig(H=6, alloc_steps=30, seed=6, buffer_size=1,
+                        compression=CompressionConfig(codec=codec)),
+        trace=trace)
+    windows = []
+    real_read = tae._read_prices
+
+    def read_then_guard(*a):
+        out = real_read(*a)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        windows.append("open")
+        return out
+
+    def unguard(real):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode(0)
+            windows.append("closed")
+            return real(*a, **kw)
+        return call
+    monkeypatch.setattr(tae, "_read_prices", read_then_guard)
+    monkeypatch.setattr(tae, "_cloud_agg", unguard(tae._cloud_agg))
+    monkeypatch.setattr(tae, "_cloud_agg_compressed",
+                        unguard(tae._cloud_agg_compressed))
+    try:
+        recs = [eng.step_round(collect_eval=False) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert windows == ["open", "closed"] * 2
+    assert sum(r["n_dispatches"] for r in recs) >= 4
+    assert all(bool(torch.isfinite(v).all())
+               for v in eng.model_params.values())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_device_params(cuda, tmp_path):
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import cnn
+    params = cnn.cnn_init(torch.Generator().manual_seed(0), (28, 28), 1, 10,
+                          device=cuda)
+    ckpt.save_pytree(params, str(tmp_path), step=5)
+    back = params_from_numpy(ckpt.restore_pytree(params, str(tmp_path)),
+                             cuda)
+    assert ckpt.latest_step(str(tmp_path)) == 5
+    for k, v in params.items():
+        assert back[k].device == v.device and torch.equal(back[k], v), k

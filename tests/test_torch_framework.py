@@ -210,9 +210,15 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert len(names) >= 20, names
 assert {"repro_torch.core.sweep", "repro_torch.core.assignment.hfel",
-        "repro_torch.core.scheduling.schedulers"} <= set(names), names
+        "repro_torch.core.scheduling.schedulers",
+        "repro_torch.core.async_engine", "repro_torch.core.traffic",
+        "repro_torch.checkpoint.ckpt", "repro_torch.launch.serve"
+        } <= set(names), names
 import repro_torch.core.sweep as sweep
 assert sweep.SweepRunner is repro_torch.SweepRunner
+import repro_torch.core.async_engine as ae
+assert ae.AsyncHFLEngine is repro_torch.AsyncHFLEngine
+assert repro_torch.run_serve.__module__ == "repro_torch.launch.serve"
 assert not bad, bad
 print("ok", len(names))
 """
