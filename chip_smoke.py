@@ -111,7 +111,8 @@ drawn on the card from a seed, bf16 compute):
    kernel its layout selects (wgmma, mma or fma: checked), timed at the
    prefill's shape against the bound, the kernel's own floor (1.5x the
    bound: P V runs twice, P's bf16 head and remainder), the plain version
-   and PyTorch's SDPA.
+   and PyTorch's SDPA; the f32 (fma) path timed the same way at the
+   prefill's shape on f32 inputs (FA_F32; its bound at the f32 rate).
 9. A': two layers at full width in f32: the prefill through the kernel
    (2 launches, fma) against the plain prefill within LM_F32_TOL of the
    largest logit, and the serving loop's teacher-forced decode logits
@@ -146,14 +147,51 @@ drawn on the card from a seed, bf16 compute):
       directory: one JSON line a round, the last checkpoint restored
       bit for bit equal to the engine's params; then one int8 round;
    d. one more always-on round under ``torch.profiler``.
+13. The registry's decoders as HFL sequence payloads on the Table-I
+   world (``seqcls_syn`` 20 000/2 000 with ``vocab_size = min(257,
+   smoke vocab)``, D_n in [400, 700], H=50, K=10, IKC, geo, 200-step
+   allocations, ``agg_kernel=True``, ``use_kernel=True``): for each
+   arch of ``HFL_SMOKE_ARCHS`` but the CNN (mistral-nemo, mamba2,
+   qwen3-moe smoke configs in f32), the clustering and one round, K1
+   ceil(n/64) launches a hop over its n leaves and K2 480, every output
+   finite; qwen3-moe's second round against ``agg_kernel=False`` (T_i,
+   E_i equal, params within PARAM_TOL); mamba2's 2-lane ``SweepRunner``
+   round (one lane at a time: a lane's vmapped training holds ~50 GB),
+   ``fused=True`` against ``"oracle"`` (records equal, params within
+   PARAM_TOL). Wall and phase seconds of each round.
+14. The LM families, f32 weights drawn on the card, bf16 compute:
+   a. mamba2-2.7b at full width and depth (64 layers): a 2-layer f32 A'
+      with the ``serve_lm`` teacher-forced decode against the prefill
+      (LM_F32_TOL); ``ssd_chunked`` against ``ssd_reference`` on layer
+      0's own f32 inputs (SSD_SEQ tokens, SSD_REL); the 64-layer prefill
+      at B=2, S=4096 (16 chunks of 256), profiled; ``serve_lm`` (batch
+      8, prompt 32, 64 tokens).
+   b. qwen3-moe-235b-a22b at full width, MOE_LAYERS=4 of its 94 layers
+      (the depth is the only cut): a 2-layer f32 A' (kernel vs plain
+      prefill, decode vs prefill, LM_F32_TOL, on the positions before
+      each sequence's first token that lost a choice or was routed
+      differently: capacity is per forward, so decode and prefill drop
+      different tokens); the 4-layer bf16 prefill (B=2, S=2048) through
+      K5 (4 launches, all wgmma) against the plain prefill, and the
+      ``serve_lm`` loop's decode against the kernel prefill, each with
+      the second run replaying the first one's routing
+      (``forced_routing``: in bf16 near-ties of the 128 router
+      probabilities flip experts between any two runs) and held by
+      LM_BF16_REL and LM_BF16_AGREE; drops and flips of the free runs
+      printed; one profiled prefill.
+   c. jamba at its smoke config (attention + SSM + MoE; its full width
+      needs four cards): kernel vs plain prefill in f32 (2 K5 launches,
+      fma) and in bf16 (wgmma, routing replayed), and the f32 decode
+      with KV and SSM caches side by side against the prefill.
 Each phase prints its peak device memory.
 
 The line before the last is a JSON object with one entry per kernel
 (the decode-aggregate kernel once per wire dtype; the aggregation
 kernels' times from their edge hop line; K1's and int8 K4's entries
 also carry the sweep's edge hop and their launches in phases 7a and 7e,
-K1's the sweep's figures); the last line is
-``{"ok": true, "device": {...}}``.
+K1's the sweep's figures; K1's and K2's the launches of phase 13 by
+arch; K5's the launches of phase 14 and the f32 path's row); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -201,6 +239,8 @@ BF16_FLOPS = 989e12     # H100/H200 SXM bf16 tensor-core rate, dense
 # outputs near zero
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
 FA_MAIN = ("prefill", 2, 4096, 32, 2, 128, 0, "bfloat16")
+# the f32 FMA path timed at the prefill's shape, on f32 inputs
+FA_F32 = ("f32 prefill", 2, 4096, 32, 2, 128, 0, "float32")
 FA_CASES = (FA_MAIN,
             ("ragged S", 1, 200, 4, 2, 64, 0, "bfloat16"),
             ("window 96 G=4", 1, 256, 8, 2, 64, 96, "bfloat16"),
@@ -209,11 +249,12 @@ FA_CASES = (FA_MAIN,
             ("hd 16", 2, 64, 8, 2, 16, 0, "bfloat16"),
             ("hd 48", 2, 64, 4, 2, 48, 0, "bfloat16"),
             ("MHA G=1", 2, 256, 4, 4, 32, 0, "bfloat16"),
-            ("f32 prefill", 1, 1024, 32, 2, 128, 0, "float32"),
+            ("f32 S=1024", 1, 1024, 32, 2, 128, 0, "float32"),
             ("f32 window 96", 1, 256, 8, 2, 64, 96, "float32"),
             ("f32 hd 80", 1, 200, 2, 1, 80, 50, "float32"),
             ("hd 20 (no TMA)", 1, 200, 4, 2, 20, 0, "bfloat16"),
-            ("long", 1, 16384, 2, 1, 128, 0, "bfloat16"))
+            ("long", 1, 16384, 2, 1, 128, 0, "bfloat16"),
+            FA_F32)
 # the factor of the kernel's own arithmetic floor over the function's
 # bound: P enters P V as two bf16 operands (head and remainder), so it
 # computes Q K^T once and P V twice, 6d flops a pair for the bound's 4d
@@ -250,6 +291,15 @@ SWEEP_LANES, SWEEP_ROUNDS = 4, 3   # the sweep phase's lanes and host rounds
 # runs: D3QN waves (3 before the sweep phase)
 D3QN_WAVES = 2
 ASYNC_ROUNDS = 2        # phase 12b's rounds under the stationary preset
+# phase 14: the LM families at full width (bf16 compute, f32 weights)
+ZOO_SSM, ZOO_MOE, ZOO_HYBRID = ("mamba2-2.7b", "qwen3-moe-235b-a22b",
+                                "jamba-1.5-large-398b")
+MOE_LAYERS = 4          # qwen3-moe's depth cut: 4 of its 94 layers
+MOE_BATCH, MOE_SEQ = 2, 2048     # qwen3-moe prefill (4096 tokens, as A's)
+# ssd_chunked against ssd_reference on one full-width layer's inputs, f32:
+# max |chunked - recurrence| <= SSD_REL x max |recurrence| (sums over
+# 256-token chunks and 4 chunk states in another order than 1 024 steps)
+SSD_REL, SSD_SEQ = 1e-4, 1024
 
 
 def check(cond, msg):
@@ -1038,10 +1088,11 @@ def flash_phase(torch, rate):
                 f"Hkv={Hkv} d={d:3d} window={window:2d} {dtype_name} "
                 f"[{path}]: max_abs_err={err:.3e} (rtol {rtol:.3g}, atol "
                 f"{atol:g})")
-        if tag in ("prefill", "long"):
-            t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v), 20)
+        if tag in ("prefill", "long", "f32 prefill"):
+            t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v),
+                               5 if dtype == torch.float32 else 20)
             line += f" kernel_ms={t_k:.4f} eager_ms={e_k:.4f}"
-        if tag == "prefill":
+        if tag in ("prefill", "f32 prefill"):
             t_p = time_events(torch, lambda: fa.flash_attention_ref(q, k, v),
                               2)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1055,16 +1106,20 @@ def flash_phase(torch, rate):
                 * q.element_size()
             peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
             by_bytes, by_flops = nbytes / rate, flops / peak
-            res.update(ms=t_k, eager_ms=e_k, plain_ms=t_p, library_ms=t_l,
+            row = dict(ms=t_k, eager_ms=e_k, plain_ms=t_p, library_ms=t_l,
                        bound_ms=max(by_bytes, by_flops) * 1e3,
                        bound_by="bytes" if by_bytes >= by_flops
-                       else "operations",
-                       floor_ms=max(by_bytes, FA_FLOOR * by_flops) * 1e3)
+                       else "operations")
             line += (f" plain_ms={t_p:.4f} library_ms={t_l:.4f} (sdpa "
                      f"max_abs_err vs plain {lib_err:.3e}) bound_ms="
-                     f"{res['bound_ms']:.4f} ({res['bound_by']}: "
-                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB) "
-                     f"kernel_floor_ms={res['floor_ms']:.4f}")
+                     f"{row['bound_ms']:.4f} ({row['bound_by']}: "
+                     f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB)")
+            if tag == "prefill":
+                row["floor_ms"] = max(by_bytes, FA_FLOOR * by_flops) * 1e3
+                line += f" kernel_floor_ms={row['floor_ms']:.4f}"
+                res.update(row)
+            else:
+                res["f32_prefill"] = row
         print(line)
         del q, k, v, got, ref, diff
     return res
@@ -1397,6 +1452,478 @@ def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
     return out
 
 
+class MoERouting:
+    """While active, records the routing of every MoE forward: each
+    choice's expert (T, k) and whether it got a slot (T, k), in the
+    forward's flattened token order, on the device. With ``replay`` (a
+    list of such (experts, kept) pairs, one a forward in call order)
+    the forwards take those decisions instead of their own while the
+    list lasts (see ``forced_routing``)."""
+
+    def __init__(self, replay=()):
+        import torch
+        from repro_torch.models import moe
+        self.torch, self.moe, self.real = torch, moe, moe.moe_route
+        self.calls, self.replay = [], list(replay)
+
+    def __enter__(self):
+        def spy(params, xf, cfg):
+            r = self.real(params, xf, cfg)
+            if self.replay:
+                r = forced_routing(r, *self.replay.pop(0))
+            self.calls.append((r.top_idx, r.keep.reshape(r.top_idx.shape)))
+            return r
+        self.moe.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_route = self.real
+
+    def prefill(self, B, S):
+        """(experts, kept), each (layers, B, S, k), of one forward."""
+        return tuple(self.torch.stack([c[i] for c in self.calls])
+                     .reshape(len(self.calls), B, S, -1) for i in (0, 1))
+
+    def decode(self, B, steps, n_moe):
+        """(experts, kept), each (n_moe, B, steps, k), of the first
+        ``steps`` decode steps (n_moe layers a step, B tokens each)."""
+        calls = self.calls[:steps * n_moe]
+        return tuple(self.torch.stack([c[i] for c in calls])
+                     .reshape(steps, n_moe, B, -1).permute(1, 2, 0, 3)
+                     for i in (0, 1))
+
+    def drops(self):
+        """Token-layers that lost a choice, over every forward seen."""
+        return sum(int((~c[1]).any(1).sum()) for c in self.calls)
+
+    def as_decode_replay(self, B, S):
+        """This prefill's routing as a decode loop's replay list: step t
+        of the first S, layer by layer, its B tokens at position t."""
+        idx, keep = self.prefill(B, S)
+        return [(idx[layer, :, t], keep[layer, :, t]) for t in range(S)
+                for layer in range(idx.shape[0])]
+
+
+def forced_routing(r, idx, keep):
+    """Routing ``r`` (from ``moe_route``) with the experts ``idx`` (T, k)
+    and the kept choices ``keep`` (T, k) of another run: each kept
+    choice gets its own slot (the buffer grows if more than the forward's
+    capacity chose one expert) and the weights are renormalised from
+    this run's own router probabilities at those experts. Two runs that
+    differ only in their numerics then dispatch every token alike, so
+    their outputs can be held position by position, which a near-tie of
+    two router probabilities would otherwise prevent."""
+    import torch
+    E = r.probs.shape[1]
+    flat, kf = idx.reshape(-1), keep.reshape(-1)
+    oh = ((flat[:, None] == torch.arange(E, device=flat.device))
+          & kf[:, None]).to(torch.int32)
+    pos = (torch.cumsum(oh, 0) - 1).gather(1, flat[:, None])[:, 0]
+    w = r.probs.gather(1, idx)
+    return r._replace(top_w=w / w.sum(-1, keepdim=True), top_idx=idx,
+                      pos=pos, keep=kf,
+                      capacity=max(1, int(oh.sum(0).max())))
+
+
+def routing_diverged(a, b):
+    """(B, S) bool: tokens that lost a choice in either routing ``a``,
+    ``b`` (from ``MoERouting.prefill``/``decode``), or whose experts
+    differ between them, in any layer."""
+    (ea, ka), (eb, kb) = a, b
+    return ((ea != eb).any(-1) | ~ka.all(-1) | ~kb.all(-1)).any(0)
+
+
+def undiverged(diverged):
+    """(B, S) bool: positions before each sequence's first diverged
+    token. A dropped choice, or another expert, changes that token's
+    hidden state and, through attention or the SSM state, every later
+    one of its sequence, but nothing before it; so two runs agree there
+    as two runs of a dense model do."""
+    import torch
+    S = diverged.shape[1]
+    pos = torch.arange(S, device=diverged.device)
+    first = torch.where(diverged, pos, S).min(dim=1).values
+    return pos[None, :] < first[:, None]
+
+
+def moe_gap(a, b, ra, rb, label):
+    """logits_gap of ``a`` and ``b`` on the positions before each
+    sequence's first token routed differently by ``ra`` and ``rb``;
+    prints what was excluded. Returns (rel, agree, positions)."""
+    div = routing_diverged(ra, rb)
+    keep = undiverged(div)
+    drops = int((~ra[1].all(-1) | ~rb[1].all(-1)).any(0).sum())
+    flips = int((ra[0] != rb[0]).any(-1).any(0).sum())
+    rel, agree = logits_gap(a[keep], b[keep])
+    print(f"{label}: {drops} tokens lost a choice and {flips} were routed "
+          f"to other experts (either side, any layer); compared on the "
+          f"{int(keep.sum())} of {keep.numel()} positions before each "
+          f"sequence's first: max|diff|/max|logits| {rel:.3e}, argmax "
+          f"agreement {agree:.4f}")
+    return rel, agree, int(keep.sum())
+
+
+def seq_payload_phase(torch, sp, pop, zero_counts, read_counts, H=50, K=10,
+                      size_range=(400, 700)):
+    """Phase 13: the registry's decoders as HFL sequence payloads on the
+    Table-I world (N=100, M=5, D_n in [400, 700], H=50, K=10, IKC, geo,
+    200-step allocations, the kernels on)."""
+    from repro_torch.configs.registry import HFL_SMOKE_ARCHS, get_smoke_config
+    from repro_torch.core import sweep as sw
+    from repro_torch.core.framework import FrameworkConfig, HFLFramework
+    from repro_torch.data import make_seq_dataset, partition_noniid
+    from repro_torch.kernels.hier_agg.ops import LEAF_CAPACITY
+
+    per_round = sp.Q + 1
+    out = {"k1": {}, "k2": {}}
+    for arch in HFL_SMOKE_ARCHS[1:]:
+        t_arch = time.perf_counter()
+        vocab = min(257, get_smoke_config(arch).vocab_size)
+        X, y, Xt, yt = make_seq_dataset(n_train=20_000, n_test=2_000, seed=0,
+                                        vocab_size=vocab)
+        fed = partition_noniid(X, y, Xt, yt, n_devices=sp.n_devices,
+                               size_range=size_range, seed=0)
+        cfg = FrameworkConfig(arch=arch, H=H, K=K, scheduler="ikc",
+                              assigner="geo", agg_kernel=True,
+                              use_kernel=True, alloc_steps=200)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        fw, setup_s = timed(torch, lambda: HFLFramework(sp, pop, fed, cfg))
+        n = len(fw.model_params)
+        widths = sorted(v.numel() for v in fw.model_params.values())
+        k1 = -(-n // LEAF_CAPACITY) * per_round
+        recs = run_rounds(torch, fw, (1,), f"13 {arch}")
+        got = read_counts(f"13 {arch} (clustering + 1 round)", {
+            "masked_aggregate": k1,
+            "pairwise_sq_dists": 8 * ((K - 1) + 50 + 1)})
+        out["k1"][arch] = got["masked_aggregate"]
+        out["k2"][arch] = got["pairwise_sq_dists"]
+        mini = fw.clustering_stats["aux_bits"] / 32
+        print(f"13 {arch}: {n} leaves (widths {widths[0]}..{widths[-1]}), "
+              f"{fw.model_bits / 8:.0f} bytes a model, xi P={mini:.0f}, "
+              f"setup {setup_s:.3f} s (clustering "
+              f"{fw.setup_seconds['cluster']:.3f} s), ari "
+              f"{fw.clustering_stats['ari']:.3f}, round wall "
+              f"{recs[0]['wall_s']:.3f} s, peak memory {peak_gb(torch)}")
+        if arch == ZOO_MOE:
+            # a second round, kernel aggregation against the plain matmul
+            plain = fork(fw, agg_kernel=False)
+            rk, rp = fw.run_round(2), plain.run_round(2)
+            dmax = max(float((fw.model_params[k] - plain.model_params[k])
+                             .abs().max()) for k in fw.model_params)
+            print(f"13 {arch} round 2 kernel vs plain matmul: T_i "
+                  f"{rk['T_i']} vs {rp['T_i']}, E_i {rk['E_i']} vs "
+                  f"{rp['E_i']}, max |dparam| {dmax:.3e} (tolerance "
+                  f"{PARAM_TOL}), seconds {rk['seconds']}")
+            check(rk["T_i"] == rp["T_i"] and rk["E_i"] == rp["E_i"],
+                  f"13 {arch}: T_i/E_i differ between the backends")
+            check(dmax <= PARAM_TOL, f"13 {arch}: params differ by {dmax}")
+            del plain
+        if arch == ZOO_SSM:
+            # a 2-lane sweep round, fused against the per-round oracle;
+            # one lane at a time (lane_chunk=1): the vmapped training of
+            # one lane's cohort holds ~50 GB of activations
+            labels = fw.scheduler.state.clusters
+            runner = sw.SweepRunner(sp, [(pop, fed)] * 2, lr=cfg.lr,
+                                    alloc_steps=200, agg_kernel=True,
+                                    arch=arch, lane_chunk=1)
+
+            def scheds():
+                return [sw.build_scheduler("ikc", fed, sp, H, K=K, seed=s,
+                                           arch=arch, labels=labels)
+                        for s in (0, 1)]
+            zero_counts()
+            rf, wf = timed(torch, lambda: runner.run(
+                scheds(), 1, seeds=[0, 1], fused=True))
+            pf = runner.params_b
+            ro, wo = timed(torch, lambda: runner.run(
+                scheds(), 1, seeds=[0, 1], fused="oracle"))
+            read_counts(f"13 {arch} sweep (2 lanes one at a time, fused "
+                        "+ oracle)", {"masked_aggregate": 2 * 2 * k1})
+            dmax = max(float((pf[k] - runner.params_b[k]).abs().max())
+                       for k in pf)
+            print(f"13 {arch} sweep 2 lanes: fused {wf:.3f} s, oracle "
+                  f"{wo:.3f} s; T_i {rf['T_i'].tolist()} vs "
+                  f"{ro['T_i'].tolist()}; acc {rf['acc'].tolist()}; max "
+                  f"|dparam| {dmax:.3e}; peak memory {peak_gb(torch)}")
+            for k in ("acc", "T_i", "E_i", "iters"):
+                check(np.array_equal(rf[k], ro[k]),
+                      f"13 {arch} sweep: fused {k} differs from oracle")
+            check(dmax <= PARAM_TOL, f"13 {arch} sweep: params {dmax}")
+            del runner
+        print(f"13 {arch}: {time.perf_counter() - t_arch:.1f} s")
+        del fw
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_lm_phase(torch, zero_counts, read_counts):
+    """Phase 14: the SSM, MoE and hybrid LM families (bf16 compute, f32
+    weights drawn on the card from a seed)."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    out = {"flash_attention": 0}
+
+    def init(cfg):
+        torch.cuda.reset_peak_memory_stats()
+        params, secs = timed(torch, lambda: T.init(g, cfg, device="cuda"))
+        n = sum(x.numel() for x in _leaves(params))
+        print(f"14 {cfg.name} n_layers={cfg.n_layers} {cfg.dtype}: {n} f32 "
+              f"parameters (analytic count {cfg.param_count()}) drawn on "
+              f"the card in {secs:.3f} s")
+        return params
+
+    def prefill(cfg, params, tokens, impl):
+        n_attn = sum(cfg.layer_kind(i) == "attn"
+                     for i in range(cfg.n_layers))
+        expect = n_attn if impl == "kernel" else 0
+        zero_counts()
+        logits, secs = timed(torch, lambda: make_prefill_step(cfg, impl)(
+            params, {"tokens": tokens}))
+        label = f"14 {cfg.name} {cfg.dtype} prefill impl={impl}"
+        read_counts(label, {"flash_attention": expect})
+        if expect:
+            q = torch.empty((1, 1, cfg.n_heads, cfg.hd), device="cuda",
+                            dtype=cfg.compute_dtype)
+            path = fa.kernel_path(q, q, q)
+            by_path = dict.fromkeys(fa.PATHS, 0)
+            by_path[path] = expect
+            got = fa.flash_attention_cuda.launches_by_path
+            print(f"{label}: K5 launches by path {got} (expected {by_path})")
+            check(got == by_path, f"{label}: K5 launches by path {got}")
+            out["flash_attention"] += expect
+        check(bool(torch.isfinite(logits).all()), f"{label}: not finite")
+        print(f"  {label} B={tokens.shape[0]} S={tokens.shape[1]}: "
+              f"{secs:.4f} s, peak memory {peak_gb(torch)}")
+        return logits
+
+    def serve(cfg, params, prompt, gen):
+        zero_counts()
+        res = serve_lm.serve(params, cfg, prompt, gen,
+                             keep_prompt_logits=True)
+        read_counts(f"14 {cfg.name} serve_lm loop", {})
+        print(f"  14 {cfg.name} serve_lm B={prompt.shape[0]} prompt="
+              f"{prompt.shape[1]} gen={gen}: prefill {res['prefill_s']:.4f}"
+              f" s, decode {res['decode_s']:.4f} s "
+              f"({res['decode_s'] / gen * 1e3:.2f} ms a step), "
+              f"{res['tok_s']:.1f} tok/s, peak memory {peak_gb(torch)}")
+        toks = res["tokens"]
+        check(toks.shape == (prompt.shape[0], gen)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"14 {cfg.name}: serve_lm tokens out of range")
+        check(bool(torch.isfinite(res["prompt_logits"]).all()),
+              f"14 {cfg.name}: serve_lm prompt logits not finite")
+        return res
+
+    def prompt_of(cfg, B=SERVE_BATCH, S=SERVE_PROMPT):
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                             device="cuda")
+
+    # ---- a. mamba2-2.7b: f32 A' (2 layers), then all 64 layers in bf16
+    t0 = time.perf_counter()
+    full = get_config(ZOO_SSM)
+    cfg2 = dataclasses.replace(full, n_layers=2, dtype="float32")
+    params = init(cfg2)
+    prompt = prompt_of(cfg2)
+    res = serve(cfg2, params, prompt, 8)
+    pre = prefill(cfg2, params, prompt, "plain")
+    rel, agree = logits_gap(res["prompt_logits"], pre)
+    print(f"14a A' decode vs prefill over the prompt: max|diff|/max|logits|"
+          f" {rel:.3e} (limit {LM_F32_TOL:g}), argmax agreement "
+          f"{agree:.4f}")
+    check(rel <= LM_F32_TOL, f"14a A': decode vs prefill {rel}")
+    # ssd_chunked against the recurrence on layer 0's own inputs
+    seen = []
+    real_chunked = m2.ssd_chunked
+
+    def spy(*a):
+        seen.append(a)
+        return real_chunked(*a)
+    m2.ssd_chunked = spy
+    try:
+        prefill(cfg2, params, prompt_of(cfg2, 1, SSD_SEQ), "plain")
+    finally:
+        m2.ssd_chunked = real_chunked
+    x, dt, A, Bm, Cm, chunk = seen[0]
+    (yc, tc), (yr, tr) = (timed(torch, lambda: m2.ssd_chunked(
+        x, dt, A, Bm, Cm, chunk)), timed(torch, lambda: m2.ssd_reference(
+            x, dt, A, Bm, Cm)))
+    err = float((yc - yr).abs().max())
+    scale = float(yr.abs().max())
+    print(f"14a ssd_chunked vs ssd_reference, layer 0 of {full.name} f32, "
+          f"x {tuple(x.shape)} chunk {chunk}: max|diff| {err:.3e}, "
+          f"max|y| {scale:.3e} (limit {SSD_REL:g} x max|y|); chunked "
+          f"{tc:.4f} s, recurrence {tr:.4f} s")
+    check(err <= SSD_REL * scale, f"14a ssd_chunked vs reference {err}")
+    del params, res, pre, seen, x, dt, Bm, Cm, yc, yr
+    torch.cuda.empty_cache()
+    params = init(full)
+    n = sum(x.numel() for x in _leaves(params))
+    # the analytic count holds a second norm a layer and one per-head
+    # vector less than the Mamba-2 block has (ROADMAP Queue 3)
+    check(abs(n - full.param_count()) <= full.n_layers * full.d_model,
+          f"14a: {n} parameters against {full.param_count()}")
+    tokens = torch.randint(0, full.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=g, device="cuda")
+    prefill(full, params, tokens, "plain")                  # warm-up
+    lp = prefill(full, params, tokens, "plain")
+    del lp
+    prompt = prompt_of(full)
+    res = serve(full, params, prompt, SERVE_GEN)
+    pre = prefill(full, params, prompt, "plain")
+    rel, agree = logits_gap(res["prompt_logits"], pre)
+    print(f"14a {full.name} bf16 decode vs prefill over the prompt "
+          f"(printed): max|diff|/max|logits| {rel:.3e}, argmax agreement "
+          f"{agree:.4f}")
+    profiled(torch, f"14a {full.name} prefill B={LM_BATCH} S={LM_SEQ}",
+             lambda: make_prefill_step(full, "plain")(
+                 params, {"tokens": tokens}), warm_up=False)
+    print(f"14a {full.name}: peak memory {peak_gb(torch)}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    del params, res, pre, tokens
+    torch.cuda.empty_cache()
+
+    # ---- b. qwen3-moe-235b-a22b at full width: f32 A' (2 layers), then
+    #      MOE_LAYERS of its 94 layers in bf16
+    t0 = time.perf_counter()
+    full = dataclasses.replace(get_config(ZOO_MOE), n_layers=MOE_LAYERS)
+    cfg2 = dataclasses.replace(full, n_layers=2, dtype="float32")
+    params = init(cfg2)
+    prompt = prompt_of(cfg2)
+    with MoERouting() as rk:
+        lk = prefill(cfg2, params, prompt, "kernel")
+    with MoERouting() as rp:
+        lp = prefill(cfg2, params, prompt, "plain")
+    rel, _, n = moe_gap(lk, lp, rk.prefill(SERVE_BATCH, SERVE_PROMPT),
+                        rp.prefill(SERVE_BATCH, SERVE_PROMPT),
+                        f"14b A' {cfg2.name} f32 kernel vs plain prefill")
+    check(n > 0 and rel <= LM_F32_TOL, f"14b A': kernel vs plain {rel}")
+    with MoERouting() as rd:
+        res = serve(cfg2, params, prompt, 8)
+    rel, _, n = moe_gap(res["prompt_logits"], lk,
+                        rd.decode(SERVE_BATCH, SERVE_PROMPT, cfg2.n_layers),
+                        rk.prefill(SERVE_BATCH, SERVE_PROMPT),
+                        f"14b A' {cfg2.name} f32 decode vs kernel prefill")
+    check(n > 0 and rel <= LM_F32_TOL, f"14b A': decode vs prefill {rel}")
+    del params, lk, lp, res
+    torch.cuda.empty_cache()
+
+    params = init(full)
+    tokens = torch.randint(0, full.vocab_size, (MOE_BATCH, MOE_SEQ),
+                           generator=g, device="cuda")
+    with MoERouting() as rk:
+        lk = prefill(full, params, tokens, "kernel")
+    with MoERouting() as rp:
+        lp = prefill(full, params, tokens, "plain")
+    moe_gap(lk, lp, rk.prefill(MOE_BATCH, MOE_SEQ),
+            rp.prefill(MOE_BATCH, MOE_SEQ),
+            f"14b {full.name} bf16 kernel vs plain prefill (printed)")
+    print(f"  whole prefill (printed): {logits_gap(lk, lp)}")
+    with MoERouting(replay=rk.calls):
+        lp = prefill(full, params, tokens, "plain")
+    rel, agree = logits_gap(lk, lp)
+    print(f"14b {full.name} bf16 kernel vs plain prefill, the plain one on "
+          f"the kernel run's routing: max|diff|/max|logits| {rel:.3e} "
+          f"(limit {LM_BF16_REL:g}), argmax agreement {agree:.4f} (limit "
+          f"{LM_BF16_AGREE:g})")
+    check(rel <= LM_BF16_REL and agree >= LM_BF16_AGREE,
+          f"14b: kernel vs plain prefill {rel}, {agree}")
+    del lk, lp
+    torch.cuda.empty_cache()
+    prompt = prompt_of(full)
+    with MoERouting() as rd:
+        res = serve(full, params, prompt, SERVE_GEN)
+    with MoERouting() as rk:
+        pre = prefill(full, params, prompt, "kernel")
+    print(f"14b serve_lm: {rd.drops()} token-layers lost a choice over "
+          f"{SERVE_PROMPT + SERVE_GEN} decode steps x {full.n_layers} "
+          f"layers (capacity 4 slots an expert a step)")
+    moe_gap(res["prompt_logits"], pre,
+            rd.decode(SERVE_BATCH, SERVE_PROMPT, full.n_layers),
+            rk.prefill(SERVE_BATCH, SERVE_PROMPT),
+            f"14b {full.name} bf16 decode vs kernel prefill (printed)")
+    with MoERouting(replay=rk.as_decode_replay(SERVE_BATCH, SERVE_PROMPT)):
+        res = serve_lm.serve(params, full, prompt, 1,
+                             keep_prompt_logits=True)
+    rel, agree = logits_gap(res["prompt_logits"], pre)
+    print(f"14b {full.name} bf16 decode on the prefill's routing vs kernel "
+          f"prefill: max|diff|/max|logits| {rel:.3e} (limit "
+          f"{LM_BF16_REL:g}), argmax agreement {agree:.4f} (limit "
+          f"{LM_BF16_AGREE:g})")
+    check(rel <= LM_BF16_REL and agree >= LM_BF16_AGREE,
+          f"14b: decode vs prefill {rel}, {agree}")
+    del res, pre
+    zero_counts()
+    profiled(torch, f"14b {full.name} kernel prefill B={MOE_BATCH} "
+             f"S={MOE_SEQ}", lambda: make_prefill_step(full, "kernel")(
+                 params, {"tokens": tokens}))
+    read_counts("14b profiled prefill (run twice)",
+                {"flash_attention": 2 * full.n_layers})
+    out["flash_attention"] += 2 * full.n_layers
+    print(f"14b {full.name} ({MOE_LAYERS} layers): peak memory "
+          f"{peak_gb(torch)}, {time.perf_counter() - t0:.1f} s")
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # ---- c. jamba at its smoke config: attention + SSM + MoE
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_smoke_config(ZOO_HYBRID), dtype=dtype)
+        params = init(cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, 256),
+                               generator=g, device="cuda")
+        with MoERouting() as rk:
+            lk = prefill(cfg, params, tokens, "kernel")
+        with MoERouting() as rp:
+            lp = prefill(cfg, params, tokens, "plain")
+        rel, agree, n = moe_gap(lk, lp, rk.prefill(LM_BATCH, 256),
+                                rp.prefill(LM_BATCH, 256),
+                                f"14c {cfg.name} {dtype} kernel vs plain "
+                                "prefill")
+        if dtype == "bfloat16":
+            with MoERouting(replay=rk.calls):
+                lp = prefill(cfg, params, tokens, "plain")
+            rel, agree = logits_gap(lk, lp)
+            print(f"14c {cfg.name} bf16 kernel vs plain prefill on the "
+                  f"kernel run's routing: max|diff|/max|logits| {rel:.3e}"
+                  f", argmax agreement {agree:.4f}")
+        if dtype == "float32":
+            check(n > 0 and rel <= LM_F32_TOL,
+                  f"14c f32: kernel vs plain prefill {rel}")
+            prompt = prompt_of(cfg)
+            with MoERouting() as rd:
+                res = serve(cfg, params, prompt, 8)
+            with MoERouting() as rk:
+                pre = prefill(cfg, params, prompt, "kernel")
+            cache = T.init_cache(cfg, SERVE_BATCH, 8, device="cuda")
+            kinds = [sorted(c) for c in cache]
+            n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+            rel, _, n = moe_gap(res["prompt_logits"], pre,
+                                rd.decode(SERVE_BATCH, SERVE_PROMPT, n_moe),
+                                rk.prefill(SERVE_BATCH, SERVE_PROMPT),
+                                f"14c f32 decode (caches {kinds}) vs kernel "
+                                "prefill")
+            check(n > 0 and rel <= LM_F32_TOL,
+                  f"14c: decode vs prefill {rel}")
+            check(kinds == [["k", "v"], ["conv", "ssm"]],
+                  f"14c: cache kinds {kinds}")
+            del res, pre, cache
+        else:
+            check(rel <= LM_BF16_REL and agree >= LM_BF16_AGREE,
+                  f"14c bf16: kernel vs plain prefill {rel}, {agree}")
+        del params, lk, lp
+    print(f"14c {ZOO_HYBRID} smoke: peak memory {peak_gb(torch)}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1669,6 +2196,20 @@ def main() -> int:
     async_out["phase_s"] = time.perf_counter() - t0
     print(f"async phase: {async_out['phase_s']:.1f} s; "
           + json.dumps(async_out))
+    del fed, X, y, Xt, yt
+    torch.cuda.empty_cache()
+
+    # ------------------------------- model-zoo payloads (phase 13)
+    t0 = time.perf_counter()
+    seq = seq_payload_phase(torch, sp, pop, zero_counts, read_counts)
+    print(f"seq payload phase: {time.perf_counter() - t0:.1f} s")
+    del pop
+    torch.cuda.empty_cache()
+
+    # --------------------------- LM families at full width (phase 14)
+    t0 = time.perf_counter()
+    zoo = zoo_lm_phase(torch, zero_counts, read_counts)
+    print(f"zoo LM phase: {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------------------------------- result
     src = "src/repro_torch/csrc/hier_agg.cu"
@@ -1708,6 +2249,13 @@ def main() -> int:
                  "sweep_launches": sweep.pop("int8_launches"),
                  "sweep_hop": sweep_hop("masked_decode_aggregate_i8")}}
     extra["masked_aggregate"]["sweep"] = sweep
+    extra["masked_aggregate"]["seq_payload_launches"] = seq["k1"]
+    extra["pairwise_sq_dists"] = {"seq_payload_launches": seq["k2"]}
+    extra["flash_attention"] = {
+        "zoo_launches": zoo["flash_attention"],
+        "f32_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
+                                "d=128, causal, f32 (fma)",
+                        **kres["flash_attention"].pop("f32_prefill")}}
     kernels = []
     for key, (kname, source, replaces, work) in routes.items():
         r = kres[key]

@@ -12,27 +12,34 @@ Module map (port -> reference):
 ``repro_torch.utils``                          ``repro.utils`` (tree_bytes, tree_flatten_to_vector,
                                                dbm_to_watt, db_to_linear; tree_map,
                                                tree_leaves for nested dicts)
-``repro_torch.convert``                        (new) numpy <-> port parameter trees
-``repro_torch.data.synthetic``                 ``repro.data.synthetic`` (make_dataset; numpy copy)
+``repro_torch.convert``                        (new) numpy <-> port parameter trees,
+                                               flat <-> nested payloads
+``repro_torch.data.synthetic``                 ``repro.data.synthetic`` (make_dataset,
+                                               make_seq_dataset; numpy copy)
 ``repro_torch.data.partition``                 ``repro.data.partition`` (numpy copy)
 ``repro_torch.core.cost_model``                ``repro.core.cost_model`` (eqs. 4-14, PopulationBatch,
                                                availability traces and samplers)
 ``repro_torch.models.layers``                  ``repro.models.layers`` (he_normal, dense/embed
-                                               init, rmsnorm, RoPE, SwiGLU)
+                                               init, rmsnorm, RoPE, SwiGLU,
+                                               causal_conv1d)
+``repro_torch.models.mamba2``                  ``repro.models.mamba2`` (SSD chunked and
+                                               recurrent, the Mamba-2 block)
+``repro_torch.models.moe``                     ``repro.models.moe`` (fixed-capacity top-k
+                                               MoE, aux loss)
+``repro_torch.models.frontend``                ``repro.models.frontend`` (vlm/audio stubs)
+``repro_torch.models.seq_classifier``          ``repro.models.seq_classifier`` (the decoders
+                                               as HFL payloads, mini model ξ)
 ``repro_torch.models.cnn``                     ``repro.models.cnn``
-``repro_torch.models.spec``                    ``repro.models.spec`` (cnn_spec)
+``repro_torch.models.spec``                    ``repro.models.spec`` (cnn_spec, seq_spec)
 ``repro_torch.configs.base``                   ``repro.configs.base`` (ModelConfig, InputShape)
-``repro_torch.configs.<arch>``                 ``repro.configs.<arch>`` for chatglm3_6b,
-                                               mistral_nemo_12b, internvl2_26b,
-                                               musicgen_medium, llama3_405b,
-                                               mistral_large_123b, hfl_cnn
+``repro_torch.configs.<arch>``                 ``repro.configs.<arch>`` for every arch
 ``repro_torch.configs.registry``               ``repro.configs.registry`` (get_config,
                                                get_smoke_config, variant_for_shape,
-                                               get_hfl_spec: hfl-cnn)
+                                               get_hfl_spec, HFL_SMOKE_ARCHS)
 ``repro_torch.models.attention``               ``repro.models.attention`` (GQA, RoPE, SWA,
                                                KV cache; impl "plain"/"kernel")
-``repro_torch.models.transformer``             ``repro.models.transformer`` (dense, vlm,
-                                               audio; forward, loss_fn, decode)
+``repro_torch.models.transformer``             ``repro.models.transformer`` (every family;
+                                               forward, loss_fn, decode)
 ``repro_torch.launch.steps``                   ``repro.launch.steps`` (make_serve_step,
                                                make_prefill_step)
 ``repro_torch.launch.serve_lm``                ``repro.launch.serve_lm`` (the LM serving CLI)

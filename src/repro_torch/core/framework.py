@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_hfl_spec
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import flatten_params, params_from_numpy
 from repro_torch.core import compression as comp
 from repro_torch.core import cost_model as cm
 from repro_torch.core import resource as ra
@@ -307,7 +307,7 @@ class HFLFramework:
 
         self.spec = get_hfl_spec(cfg.arch)
         self.model_params = (
-            params_from_numpy(init_params, self.device)
+            flatten_params(params_from_numpy(init_params, self.device))
             if init_params is not None
             else self.spec.init_fn(self.generator, fed, self.device))
         self.apply_fn = self.spec.apply_fn

@@ -1,2 +1,4 @@
-from repro_torch.data.synthetic import SyntheticSpec, make_dataset, DATASETS  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    DATASETS, SEQ_DATASETS, SeqSpec, SyntheticSpec, class_token_dists,
+    make_dataset, make_seq_dataset)
 from repro_torch.data.partition import FederatedData, partition_noniid  # noqa: F401

@@ -4,7 +4,8 @@
         --arch chatglm3-6b --batch 8 --prompt-len 32 --gen 64
 
 Draws random weights from ``--seed``, feeds a random prompt batch through
-the decode step (teacher-forced, filling the KV cache), then decodes
+the decode step (teacher-forced, filling the KV and SSM caches), then
+decodes
 ``--gen`` tokens per sequence, greedy or with ``--temperature``, and
 prints tokens/s. It runs on the card (``--device cuda``, the default;
 without one it raises) unless ``--device cpu`` is given.
@@ -13,7 +14,8 @@ On the card the weights are drawn by a ``torch.Generator`` on the card:
 at full width (chatglm3-6b: 6.2e9 f32 parameters) a host draw would need
 25 GB of host memory. ``jax.random`` draws cannot be matched in torch
 anyway, so the weights, the prompt and the samples differ from the
-reference's for the same seed; the loop is the same.
+reference's for the same seed; the loop is the same. Every registry
+arch serves: dense, vlm, audio, MoE, SSM (mamba2-2.7b) and hybrid.
 """
 from __future__ import annotations
 

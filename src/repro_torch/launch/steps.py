@@ -14,7 +14,8 @@ from repro_torch.models import transformer as T
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, tokens, pos) -> (logits, cache): one
-    KV-cache decode step (plain attention on the cache, no kernel)."""
+    decode step on the KV caches (plain attention, no kernel) and the
+    SSM caches (the Mamba-2 recurrence) of ``T.init_cache``."""
 
     def serve_step(params, cache, tokens, pos):
         return T.decode(params, tokens, cache, pos, cfg)

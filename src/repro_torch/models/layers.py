@@ -1,12 +1,13 @@
 """Core layer primitives (functional: params are plain dicts of tensors).
 
 Port of ``repro.models.layers``: He/Kaiming and embedding inits,
-RMSNorm, split-half RoPE and the SwiGLU MLP. ``causal_conv1d`` comes
-with Mamba2 (ROADMAP Queue 1 item 8).
+RMSNorm, split-half RoPE, the SwiGLU MLP and the depthwise causal
+convolution of the Mamba-2 block.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -103,3 +104,26 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.nn.functional.silu(x @ params["w_gate"])
     u = x @ params["w_up"]
     return (g * u) @ params["w_down"]
+
+
+# ---------------------------------------------------- depthwise causal conv
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: (B, S, C), w: (C, W).
+
+    ``state`` (B, W-1, C), the last W-1 inputs of the stream so far,
+    runs it in streaming mode (decode); without it the sequence starts
+    from zeros. Returns (y (B, S, C), new_state (B, W-1, C)).
+    """
+    B, S, C = x.shape
+    W = w.shape[1]
+    pad = (torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)             # (B, S+W-1, C)
+    # y[t] = sum_j w[:, j] * xp[t+j], in the reference's order of j
+    ys = xp[:, 0:S] * w[:, 0]
+    for j in range(1, W):
+        ys = ys + xp[:, j:j + S] * w[:, j]
+    return ys, xp[:, S:]

@@ -1,5 +1,6 @@
 """Decoder-only model over one ``ModelConfig`` (port of
-``repro.models.transformer`` for the attention-only families).
+``repro.models.transformer``: dense, MoE, SSM, hybrid, vlm and audio
+decoders from one code path).
 
 * Parameters keep the reference's tree: ``blocks`` is a list of
   super-block dicts whose leaves carry a leading ``n_layers / sb`` axis,
@@ -11,8 +12,14 @@
 * ``vlm`` prepends ``n_prefix_embeds`` dense embeddings (stripped again
   before the head); ``audio`` embeds K codebooks additively (codebook k
   uses embedding rows [kV, (k+1)V)) and predicts K heads.
-* MoE and SSM layers (moe, ssm, hybrid families) raise
-  ``NotImplementedError``: they are ROADMAP Queue 1 item 8.
+* Layers come in super-blocks of ``lcm(hybrid_period, moe.every)``
+  templates: a token-mixing sublayer (attention, or a Mamba-2 block for
+  ``layer_kind == "ssm"``) and a channel-mixing one (SwiGLU, an MoE for
+  ``mlp_kind == "moe"``, or none). MoE layers add their router aux loss
+  to the forward's ``aux``, and ``loss_fn`` adds
+  ``router_aux_weight · aux``. Decode caches hold a KV cache for each
+  attention position of the super-block and an SSM cache (SSD state and
+  rolling conv state) for each SSM position.
 
 API:
   init(generator, cfg, device)             -> params
@@ -24,37 +31,27 @@ API:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, rmsnorm, rmsnorm_init)
 from repro_torch.utils import resolve_device
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} layers are not ported to repro_torch yet; see ROADMAP "
-        "Queue 1 item 8")
-
-
 def super_block(cfg: ModelConfig) -> int:
-    """Layers per super-block (distinct layer templates); raises for the
-    layer kinds the port does not have yet."""
+    """Layers per super-block (distinct layer templates)."""
     p = cfg.hybrid_period if cfg.hybrid_period > 0 else 1
     e = cfg.moe.every if cfg.is_moe else 1
     sb = math.lcm(p, e)
     if cfg.n_layers % sb:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
                          f"multiple of the super-block {sb}")
-    for j in range(sb):
-        if cfg.layer_kind(j) != "attn":
-            raise _unported("SSM (Mamba2)")
-        if cfg.mlp_kind(j) == "moe":
-            raise _unported("MoE")
     return sb
 
 
@@ -69,13 +66,17 @@ def _at(tree, b: int):
 
 def _layer_init(generator, cfg: ModelConfig, idx: int, nb: int, device,
                 dtype) -> Dict[str, Any]:
+    mix = attn.attn_init if cfg.layer_kind(idx) == "attn" else m2.mamba2_init
     p: Dict[str, Any] = {
         "norm1": rmsnorm_init(cfg.d_model, device, (nb,)),
-        "mix": attn.attn_init(generator, cfg, device, dtype, (nb,))}
-    if cfg.mlp_kind(idx) != "none":
+        "mix": mix(generator, cfg, device, dtype, (nb,))}
+    kind = cfg.mlp_kind(idx)
+    if kind != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device, (nb,))
-        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, device, dtype,
-                            (nb,))
+        p["mlp"] = (moe_lib.moe_init(generator, cfg, device, dtype, (nb,))
+                    if kind == "moe" else
+                    mlp_init(generator, cfg.d_model, cfg.d_ff, device, dtype,
+                             (nb,)))
     return p
 
 
@@ -129,29 +130,42 @@ def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # --------------------------------------------------------------- forward
 
 def _mlp_sublayer(p, x: torch.Tensor, cfg: ModelConfig, idx: int
-                  ) -> torch.Tensor:
-    if cfg.mlp_kind(idx) == "none":
-        return x
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The channel-mixing sublayer with its residual -> (x, the MoE aux
+    loss or None)."""
+    kind = cfg.mlp_kind(idx)
+    if kind == "none":
+        return x, None
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply({k: w.to(h.dtype) for k, w in p["mlp"].items()}, h)
+    if kind == "moe":
+        h, aux = moe_lib.moe_apply(p["mlp"], h, cfg)
+        return x + h, aux
+    return x + mlp_apply({k: w.to(h.dtype) for k, w in p["mlp"].items()},
+                         h), None
 
 
 def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, idx: int, impl: str
-                 ) -> torch.Tensor:
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attn.attn_forward(p["mix"], h, cfg, impl=impl)
-    return _mlp_sublayer(p, x, cfg, idx)
+    if cfg.layer_kind(idx) == "attn":
+        h = attn.attn_forward(p["mix"], h, cfg, impl=impl)
+    else:
+        h = m2.mamba2_forward(p["mix"], h, cfg)
+    return _mlp_sublayer(p, x + h, cfg, idx)
 
 
 def backbone(params, x: torch.Tensor, cfg: ModelConfig, *,
              impl: str = "plain") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) embedded input -> (hidden, total aux loss). The aux
-    loss is zero: only MoE layers add to it, and they are not ported."""
+    """x (B, S, D) embedded input -> (hidden, the MoE layers' summed aux
+    loss; zero without MoE layers)."""
     sb = super_block(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for b in range(cfg.n_layers // sb):
         for j in range(sb):
-            x = _apply_layer(_at(params["blocks"][j], b), x, cfg, j, impl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _apply_layer(_at(params["blocks"][j], b), x, cfg, j, impl)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -172,41 +186,53 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, impl: str = "plain"):
-    """Mean next-token NLL over ``batch["labels"]`` (forward only: the
-    gradients come with the training slice)."""
+    """Mean next-token NLL over ``batch["labels"]``, plus
+    ``router_aux_weight · aux`` for MoE configs."""
     logits, aux = forward(params, batch, cfg, impl=impl)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
     nll = (lse - gold).mean()
-    return nll, {"nll": nll, "aux": aux}
+    total = nll
+    if cfg.is_moe:
+        total = total + cfg.moe.router_aux_weight * aux
+    return total, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------- decode
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """Per-super-block-position KV caches stacked over the blocks (the
-    reference's layout)."""
+    """Per-super-block-position caches stacked over the blocks (the
+    reference's layout): a KV cache at each attention position, an SSM
+    cache at each SSM position."""
     device = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     sb = super_block(cfg)
     nb = cfg.n_layers // sb
     return [attn.init_kv_cache(cfg, batch, max_len, dtype, device, (nb,))
-            for _ in range(sb)]
+            if cfg.layer_kind(j) == "attn" else
+            m2.init_ssm_cache(cfg, batch, dtype, device, (nb,))
+            for j in range(sb)]
 
 
 def decode(params, tokens: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     """One decode step. tokens (B, 1) or (B, 1, K); pos: the position of
-    these tokens (int). The cache is updated in place and returned."""
+    these tokens (int). The cache is updated in place and returned. An
+    MoE layer fills its capacity from the B tokens of this step alone."""
     x = _embed_tokens(params, tokens, cfg)
     sb = super_block(cfg)
     for b in range(cfg.n_layers // sb):
         for j in range(sb):
             p = _at(params["blocks"][j], b)
+            c = _at(cache[j], b)
             hn = rmsnorm(p["norm1"], x, cfg.norm_eps)
-            hn, _ = attn.attn_decode(p["mix"], hn, _at(cache[j], b), pos,
-                                     cfg)
-            x = _mlp_sublayer(p, x + hn, cfg, j)
+            if cfg.layer_kind(j) == "attn":
+                hn, _ = attn.attn_decode(p["mix"], hn, c, pos, cfg)
+            else:
+                hn, new = m2.mamba2_decode(p["mix"], hn, c, cfg)
+                for k, v in new.items():
+                    c[k].copy_(v)
+            x, _ = _mlp_sublayer(p, x + hn, cfg, j)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, x, cfg), cache

@@ -33,6 +33,17 @@ int8, under ``torch.cuda.set_sync_debug_mode("error")`` between the
 round's one price read and its cloud aggregation; a checkpoint round
 trip of device params, bit for bit.
 
+The model-zoo payloads and layers: K1 over every leaf of a sequence
+payload's hop (the mamba2 smoke classifier: 17 leaves, widths from 16
+to 65 536) against the plain version at the
+1e-5 above, one launch a hop; the MoE layer (with capacity drops) and
+the SSD forms on the card against the CPU, f32, atol 1e-5 (f32 sums in
+another order; the routing itself must be equal; the SSD's outputs
+reach ~30, so they are held to rtol 1e-5 as well); jamba-smoke's prefill
+through K5 (one launch a hybrid super-block's attention layer, on the
+fma path in f32) against its plain prefill, atol 1e-4 of the largest
+logit.
+
 Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
 before the dot, the plain version divides the scores: the reference's
 own figure). bf16: both sides compute in f32 from the same bf16 inputs
@@ -698,3 +709,84 @@ def test_checkpoint_round_trip_of_device_params(cuda, tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 5
     for k, v in params.items():
         assert back[k].device == v.device and torch.equal(back[k], v), k
+
+
+# ------------------------------------------------------- model-zoo paths
+
+@pytest.mark.cuda
+def test_seq_payload_hop_matches_plain(cuda):
+    """One edge hop over every leaf of the mamba2 sequence payload (M=5,
+    H=50): ceil(n/64) launches, each leaf against the plain version."""
+    from repro_torch.configs.registry import get_hfl_spec
+    from repro_torch.data.partition import FederatedData
+    spec = get_hfl_spec("mamba2-2.7b")
+    fed = FederatedData(X=[], y=[], X_test=np.zeros((1, 16), np.int32),
+                        y_test=np.zeros(1, np.int32), n_classes=10,
+                        majority_class=np.zeros(0, np.int64))
+    params = spec.init_fn(torch.Generator().manual_seed(0), fed, cuda)
+    widths = [v.numel() for v in params.values()]
+    assert len(widths) == 17 and min(widths) == 16
+    mask, sizes, _ = _agg_inputs(0, 1, 5, 50, 1, (), cuda)
+    leaves = [_agg_inputs(i + 1, 1, 5, 50, P, (), cuda)[2]
+              for i, P in enumerate(widths)]
+    n0 = ha.masked_aggregate_leaves_batched_cuda.launches
+    got = ha.masked_aggregate_leaves_batched(mask, sizes, leaves)
+    torch.cuda.synchronize()
+    assert ha.masked_aggregate_leaves_batched_cuda.launches == \
+        n0 + -(-len(widths) // ha.LEAF_CAPACITY)
+    for g, x in zip(got, leaves):
+        torch.testing.assert_close(
+            g, ha.masked_aggregate_batched_ref(mask, sizes, x),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_and_ssd_card_match_cpu(cuda):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import moe
+    cfg = ModelConfig("m", "moe", 2, 64, 4, 2, 96, 97, dtype="float32",
+                      moe=MoEConfig(num_experts=8, top_k=2))
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(64) + 0.3 * torch.randn(2, 32, 64, generator=g)
+    want, aux = moe.moe_apply(p, x, cfg)
+    route = moe.moe_route(p, x.reshape(-1, 64), cfg)
+    assert int((~route.keep).sum()) > 0           # capacity drops happen
+    pc = tree_map(lambda v: v.to(cuda), p)
+    got, aux_c = moe.moe_apply(pc, x.to(cuda), cfg)
+    route_c = moe.moe_route(pc, x.to(cuda).reshape(-1, 64), cfg)
+    assert torch.equal(route_c.top_idx.cpu(), route.top_idx)
+    assert torch.equal(route_c.keep.cpu(), route.keep)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(aux_c.cpu(), aux, rtol=1e-5, atol=0)
+    B, S, H, P, G, N = 2, 64, 4, 16, 1, 8
+    xs = torch.randn(B, S, H, P, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.rand(H, generator=g) - 0.5
+    Bm, Cm = (torch.randn(B, S, G, N, generator=g) for _ in range(2))
+    args = (xs, dt, A, Bm, Cm)
+    card = tuple(a.to(cuda) for a in args)
+    for fn in (lambda *a: m2.ssd_chunked(*a, 16), m2.ssd_reference):
+        torch.testing.assert_close(fn(*card).cpu(), fn(*args), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_jamba_smoke_kernel_prefill_matches_plain(cuda):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = T.init(g, cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                           device=cuda)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n0 = fa.flash_attention_cuda.launches
+    got = make_prefill_step(cfg, "kernel")(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == n0 + n_attn == n0 + 2
+    want = make_prefill_step(cfg, "plain")(params, {"tokens": tokens})
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

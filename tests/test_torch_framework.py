@@ -189,8 +189,8 @@ def test_registry():
             == dataclasses.asdict(j_get_config("hfl-cnn")))
     assert t_get_smoke_config("hfl-cnn") == t_get_config("hfl-cnn")
     assert get_hfl_spec("hfl-cnn") is get_hfl_spec("hfl-cnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_hfl_spec("mamba2-2.7b")
+    spec = get_hfl_spec("mamba2-2.7b")      # a sequence payload
+    assert spec is get_hfl_spec("mamba2-2.7b") and spec.family == "ssm"
     with pytest.raises(KeyError):
         get_hfl_spec("no-such-arch")
 

@@ -256,17 +256,29 @@ def test_chatglm3_is_the_full_width_config():
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_moe_and_ssm_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        treg.get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        treg.get_smoke_config(arch)
+    """The MoE and SSM archs (ported with their layers, parity in
+    ``tests/test_torch_zoo.py``) resolve to the reference's configs;
+    a name the registry does not hold raises."""
+    for t_get, j_get in ((treg.get_config, jreg.get_config),
+                         (treg.get_smoke_config, jreg.get_smoke_config)):
+        assert dataclasses.asdict(t_get(arch)) == dataclasses.asdict(
+            j_get(arch))
+    with pytest.raises(KeyError):
+        treg.get_config(arch + "-no-such")
 
 
 def test_moe_layers_raise_in_the_model():
+    """An MoE config builds the reference's tree; a depth that is not a
+    whole number of super-blocks raises."""
     cfg = TModelConfig("m", "moe", 2, 64, 4, 2, 96, 97, dtype="float32",
                       moe=MoEConfig(4, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TT.init(torch.Generator(), cfg, device="cpu")
+    p = TT.init(torch.Generator(), cfg, device="cpu")
+    assert sorted(p["blocks"][0]["mlp"]) == ["router", "w_down", "w_gate",
+                                             "w_up"]
+    assert p["blocks"][0]["mlp"]["w_gate"].shape == (2, 4, 64, 96)
+    with pytest.raises(ValueError, match="super-block"):
+        TT.init(torch.Generator(), dataclasses.replace(
+            cfg, moe=MoEConfig(4, 2, every=4)), device="cpu")
     with pytest.raises(KeyError):
         treg.get_config("no-such-arch")
 
