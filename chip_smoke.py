@@ -183,6 +183,30 @@ drawn on the card from a seed, bf16 compute):
       needs four cards): kernel vs plain prefill in f32 (2 K5 launches,
       fma) and in bf16 (wgmma, routing replayed), and the f32 decode
       with KV and SSM caches side by side against the prefill.
+15. LM training (``launch.steps.make_train_step`` and
+   ``make_hfl_train_step``, ``launch.train``), no kernel (the plain
+   attention: K5 has no backward):
+   a. chatglm3-6b at full width, TRAIN_LAYERS=4 of its 28 layers,
+      batch TRAIN_BATCH=8 x 4096 (train_4k's length), 8 microbatches,
+      bf16 compute, adam: TRAIN_STEPS=4 steps on the
+      ``token_batch_iterator`` stream (losses finite, every leaf moved),
+      then step wall, tokens/s, peak memory, a profiled step's device
+      busy share and the model-flops share 6·N·tokens/(t·989e12); one
+      step from one state and batch with remat on (the path's own),
+      off (equal, REMAT_*; the remat peak lower) and at 2 microbatches
+      (MB_*: loss, mean gradient in norm, params after adam);
+   b. the two-tier step on TRAIN_PODS=2 replicas (8 sequences each,
+      SGD): the pods differ after a step without the cloud sync and,
+      after one with it (a device bool), are equal and the mean of the
+      same step's unsynced pods (HFL_REL);
+   c. one smoke-config f32 step per family (dense, vlm, audio, moe,
+      ssm, hybrid) and one adafactor step (``BIG_MODEL_PARAMS`` patched
+      in memory) on the card against the CPU, at the CPU parity tests'
+      tolerances;
+   d. ``launch.train.main`` on the card (smoke), checkpointing every 2
+      steps, then a run that resumes from step 4;
+   e. no launch counter moved in a-d; ``make_train_step(impl="kernel")``
+      raises, and K5 raises on CUDA inputs that require grad.
 Each phase prints its peak device memory.
 
 The line before the last is a JSON object with one entry per kernel
@@ -190,7 +214,7 @@ The line before the last is a JSON object with one entry per kernel
 kernels' times from their edge hop line; K1's and int8 K4's entries
 also carry the sweep's edge hop and their launches in phases 7a and 7e,
 K1's the sweep's figures; K1's and K2's the launches of phase 13 by
-arch; K5's the launches of phase 14 and the f32 path's row); the last
+arch; K5's the launches of phases 14 and 15 and the f32 path's row); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -300,6 +324,34 @@ MOE_BATCH, MOE_SEQ = 2, 2048     # qwen3-moe prefill (4096 tokens, as A's)
 # max |chunked - recurrence| <= SSD_REL x max |recurrence| (sums over
 # 256-token chunks and 4 chunk states in another order than 1 024 steps)
 SSD_REL, SSD_SEQ = 1e-4, 1024
+# phase 15: training chatglm3-6b at full width (bf16 compute, f32 weights
+# and adam moments), cut to TRAIN_LAYERS of its 28 layers (at 28, 6.24e9
+# parameters with their gradients and two moments take ~100 GB), on
+# TRAIN_BATCH of train_4k's 256 sequences at its length: one sequence a
+# microbatch (the config's 8), 32 768 tokens a step
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 4, 4, 1e-4
+TRAIN_BATCH, TRAIN_SEQ = 8, 4096
+TRAIN_PODS, HFL_LR = 2, 1e-2     # the two-tier step: SGD on 2 replicas
+# the step with remat on against off runs the same kernels on the same
+# inputs (the recompute repeats the forward): equal up to ordering noise
+REMAT_LOSS_REL, REMAT_FAR = 1e-6, 1e-4
+# microbatches 2 against 8 (bf16 GEMMs of 4x the rows may take other
+# cuBLAS kernels and round elsewhere): the loss to MB_LOSS_REL, the mean
+# gradient to MB_GRAD_REL in norm, and at most MB_FAR of the params more
+# than lr/2 apart after the adam step (near-zero gradients flip their
+# update's sign). Summing only one microbatch's gradient would put the
+# gradient ~1 away in norm and move most params by ~lr.
+MB_LOSS_REL, MB_GRAD_REL, MB_FAR = 1e-3, 2e-2, 5e-2
+# the synced pods against the mean of the same step's unsynced pods, as a
+# share of how far apart the unsynced pods are
+HFL_REL = 1e-3
+# card against CPU, one smoke-config step per family, f32 (TF32 off): the
+# tolerances of tests/test_torch_train.py (f32 sums in another order)
+TRAIN_FAMILIES = (("dense", "chatglm3-6b"), ("vlm", "internvl2-26b"),
+                  ("audio", "musicgen-medium"),
+                  ("moe", "qwen3-moe-235b-a22b"), ("ssm", "mamba2-2.7b"),
+                  ("hybrid", "jamba-1.5-large-398b"))
+SMOKE_LR = 1e-3
 
 
 def check(cond, msg):
@@ -1287,7 +1339,8 @@ def lm_phases(torch, rate, zero_counts, read_counts):
 def profiled(torch, label, fn, warm_up=True):
     """Run ``fn`` under torch.profiler (after one warm-up call unless the
     caller's code is warm already); print wall, device busy time and the
-    kernels that took the most. Only the CUDA activity is recorded: the
+    kernels that took the most, and return the busy share of the wall.
+    Only the CUDA activity is recorded: the
     kernels' times are the same, and on a 4-lane sweep round recording
     the CPU activity too made the profile's post-processing ~30 s
     longer."""
@@ -1305,6 +1358,7 @@ def profiled(torch, label, fn, warm_up=True):
           f"({busy / wall:.1%}); top device time: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top))
+    return busy / wall
 
 
 def _paths(tree, prefix=()):
@@ -1924,6 +1978,287 @@ def zoo_lm_phase(torch, zero_counts, read_counts):
     return out
 
 
+def update_gap(torch, a, b, lr):
+    """(max |a - b| / lr, share of elements more than lr/2 apart) over two
+    parameter trees (a's leaves are moved to b's device one at a time):
+    after an adam step a wrong gradient moves most elements by about lr,
+    bf16 noise a few."""
+    from repro_torch.utils import tree_leaves
+    worst, far, n = 0.0, 0, 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.to(y.device) - y).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > lr / 2).sum())
+        n += d.numel()
+    return worst / lr, far / n
+
+
+def grad_gap(torch, a, b):
+    """||a - b|| / ||b|| over every leaf of two gradient trees."""
+    from repro_torch.utils import tree_leaves
+    num = sum(float((x - y).double().square().sum())
+              for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    den = sum(float(y.double().square().sum()) for y in tree_leaves(b))
+    return math.sqrt(num / den)
+
+
+def raises(exc, fn) -> bool:
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def train_phase(torch, zero_counts, read_counts):
+    """Phase 15: LM training (no kernel: the plain attention, as the
+    reference trains)."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step, restore_pytree
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.data import token_batch_iterator
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_leaves, tree_map
+
+    out = {}
+    zero_counts()
+    t0 = time.perf_counter()
+
+    # ---- a. chatglm3-6b at full width, TRAIN_LAYERS of its 28 layers
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    check(cfg.dtype == "bfloat16" and cfg.remat and cfg.microbatches == 8,
+          f"15a: {cfg.name} is not the bf16, remat, 8-microbatch config")
+    g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    params = T.init(g, cfg, device="cuda")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(), f"15a: {n_params} parameters")
+    step, opt = S.make_train_step(cfg, lr=TRAIN_LR)
+    opt_state = opt.init(params)
+    check("m" in opt_state, "15a: make_optimizer did not choose adam")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"15a {cfg.name} n_layers={TRAIN_LAYERS} of 28, {cfg.dtype} "
+          f"compute, {n_params} f32 parameters, adam, microbatches "
+          f"{cfg.microbatches}, batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"({tokens} tokens a step), remat {cfg.remat}")
+    it = token_batch_iterator(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                              seed=LM_SEED)
+
+    def next_batch(source=it, shape=None):
+        return {k: torch.from_numpy(v).cuda().reshape(shape or v.shape)
+                for k, v in next(source).items()}
+
+    probe = [x.flatten()[:4096].clone() for x in tree_leaves(params)]
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = next_batch()
+        (params, opt_state, m), secs = timed(
+            torch, lambda: step(params, opt_state, batch))
+        losses.append(float(m["loss"]))
+        walls.append(secs)
+        print(f"15a step {i + 1}: loss {losses[-1]:.4f}, {secs:.3f} s"
+              + (" (the first call)" if i == 0 else ""))
+    check(all(math.isfinite(x) for x in losses), f"15a losses {losses}")
+    check(all(not torch.equal(p.flatten()[:4096], q)
+              for p, q in zip(tree_leaves(params), probe)),
+          "15a: a parameter leaf did not move")
+    wall = float(np.median(walls[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mfu = 6 * n_params * tokens / (wall * BF16_FLOPS)
+    busy = profiled(torch, f"15a train step (B={TRAIN_BATCH}, "
+                    f"S={TRAIN_SEQ}, mb={cfg.microbatches})",
+                    lambda: step(params, opt_state, batch), warm_up=False)
+    print(f"15a step wall {wall:.4f} s (median of steps 2-{TRAIN_STEPS}), "
+          f"{tokens / wall:,.0f} tokens/s, peak memory {peak:.2f} GB, "
+          f"device busy {busy:.1%}, model-flops share 6*N*tokens/(t*989e12)"
+          f" {mfu:.1%}")
+    out["a"] = {"step_s": wall, "walls": walls, "losses": losses,
+                "tok_s": tokens / wall, "peak_gb": peak, "busy": busy,
+                "mfu": mfu, "n_params": n_params}
+
+    # the path's own step (mb 8, remat on) against remat off and mb 2,
+    # from one state and batch
+    batch = next_batch()
+
+    def one_step(c):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p, _, m = S.make_train_step(c, lr=TRAIN_LR)[0](params, opt_state,
+                                                       batch)
+        torch.cuda.synchronize()
+        return p, float(m["loss"]), torch.cuda.max_memory_allocated() / 1e9
+
+    p8, l8, peak_on = one_step(cfg)
+    # kept on the host: the 2-microbatch step below peaks at ~62 GB
+    p8 = tree_map(lambda x: x.cpu(), p8)
+    p_off, l_off, peak_off = one_step(dataclasses.replace(cfg, remat=False))
+    worst, far = update_gap(torch, p8, p_off, TRAIN_LR)
+    del p_off
+    print(f"15a remat on vs off: loss {l8:.6f} vs {l_off:.6f}, params max "
+          f"|diff| {worst:.3e} lr, {far:.3e} of the elements more than "
+          f"lr/2 apart (limits: loss rel {REMAT_LOSS_REL:g}, "
+          f"{REMAT_FAR:g}); peak memory {peak_on:.2f} vs "
+          f"{peak_off:.2f} GB")
+    check(abs(l8 - l_off) <= REMAT_LOSS_REL * abs(l_off)
+          and far <= REMAT_FAR and worst <= 2,
+          "15a: remat changed the step")
+    check(peak_on < peak_off, "15a: remat did not lower the peak")
+    p2, l2, peak2 = one_step(dataclasses.replace(cfg, microbatches=2))
+    worst, far = update_gap(torch, p8, p2, TRAIN_LR)
+    del p2, p8
+    g2, _ = S.accumulate_grads(dataclasses.replace(cfg, microbatches=2),
+                               params, batch)
+    g8, _ = S.accumulate_grads(cfg, params, batch)
+    ggap = grad_gap(torch, tree_map(lambda x: x.div_(2), g2),
+                    tree_map(lambda x: x.div_(8), g8))
+    del g8, g2
+    print(f"15a microbatches 2 vs 8: loss {l2:.6f} vs {l8:.6f}, mean "
+          f"gradient ||diff||/||g|| {ggap:.3e}, params max |diff| "
+          f"{worst:.3e} lr, {far:.3e} of the elements more than lr/2 "
+          f"apart (limits: loss rel {MB_LOSS_REL:g}, gradient "
+          f"{MB_GRAD_REL:g}, {MB_FAR:g}); peak memory {peak2:.2f} GB")
+    check(abs(l2 - l8) <= MB_LOSS_REL * abs(l8) and ggap <= MB_GRAD_REL
+          and far <= MB_FAR and worst <= 2,
+          "15a: the microbatch split changed the step")
+    out["a"].update(remat_peak_gb=peak_on, no_remat_peak_gb=peak_off,
+                    mb_grad_rel=ggap)
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # ---- b. the two-tier step: TRAIN_PODS replicas of the model
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(g, cfg, device="cuda")
+    pods = tree_map(lambda x: x[None].repeat(TRAIN_PODS, *([1] * x.dim())),
+                    params)
+    del params
+    hfl = S.make_hfl_train_step(cfg, lr=HFL_LR)
+    pit = token_batch_iterator(cfg.vocab_size, TRAIN_PODS * TRAIN_BATCH,
+                               TRAIN_SEQ, seed=LM_SEED + 1)
+    shape = (TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ)
+    batch = next_batch(pit, shape)
+    pods, secs1 = timed(torch, lambda: hfl(pods, batch, False))
+    check(any(not torch.equal(x[0], x[1]) for x in tree_leaves(pods)),
+          "15b: the pods did not diverge without the cloud sync")
+    batch = next_batch(pit, shape)
+    unsynced = hfl(pods, batch, False)
+    synced, secs2 = timed(torch, lambda: hfl(
+        pods, batch, torch.ones((), dtype=torch.bool, device="cuda")))
+    spread = max(float((x[0] - x[1]).abs().max())
+                 for x in tree_leaves(unsynced))
+    gap = max(float((s[0] - u.mean(dim=0)).abs().max())
+              for s, u in zip(tree_leaves(synced), tree_leaves(unsynced)))
+    print(f"15b {TRAIN_PODS} pods x {TRAIN_BATCH} x {TRAIN_SEQ}, SGD lr "
+          f"{HFL_LR:g}: step {secs1:.3f} s unsynced, {secs2:.3f} s synced; "
+          f"pods {spread:.3e} apart before the sync; synced vs the mean of "
+          f"the unsynced step {gap:.3e} (limit {HFL_REL:g} of that); peak "
+          f"memory {peak_gb(torch)}")
+    check(all(torch.equal(x[0], x[1]) for x in tree_leaves(synced)),
+          "15b: the pods differ after the cloud sync")
+    check(spread > 0 and gap <= HFL_REL * spread,
+          "15b: the synced pods are not the mean of the unsynced ones")
+    out["b"] = {"unsynced_s": secs1, "synced_s": secs2, "spread": spread,
+                "gap": gap}
+    del pods, unsynced, synced, batch
+    torch.cuda.empty_cache()
+
+    # ---- c. one smoke-config train step per family, card vs CPU, f32
+    def card_vs_cpu(arch, label):
+        c = dataclasses.replace(get_smoke_config(arch), microbatches=2)
+        rng = np.random.default_rng(LM_SEED)
+        books = (c.n_codebooks,) if c.n_codebooks > 1 else ()
+        raw = {k: rng.integers(0, c.vocab_size, (4, 16, *books))
+               for k in ("tokens", "labels")}
+        if c.n_prefix_embeds:
+            raw["prefix_embeds"] = rng.standard_normal(
+                (4, c.n_prefix_embeds, c.d_model)).astype(np.float32)
+        cpu_p = T.init(torch.Generator().manual_seed(LM_SEED), c,
+                       device="cpu")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            st, o = S.make_train_step(c, lr=SMOKE_LR)
+            p = tree_map(lambda x: x.to(dev), cpu_p)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+            p, state, m = st(p, o.init(p), b)
+            res[dev] = (tree_map(lambda x: x.cpu(), p),
+                        tree_map(lambda x: x.cpu() if torch.is_tensor(x)
+                                 else x, state), float(m["loss"]))
+        (pc, sc, lc), (pg, sg, lg) = res["cpu"], res["cuda"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        check(loss_rel <= 1e-5, f"15c {label}: loss {lg} vs {lc}")
+        if "m" in sc:
+            worst, far = update_gap(torch, pg, pc, SMOKE_LR)
+            dm = max(float((x - y).abs().max()) for x, y in
+                     zip(tree_leaves(sg["m"]), tree_leaves(sc["m"])))
+            dv = max(float((x - y).abs().max()) for x, y in
+                     zip(tree_leaves(sg["v"]), tree_leaves(sc["v"])))
+            print(f"15c {label}: loss rel {loss_rel:.2e}, m {dm:.2e}, v "
+                  f"{dv:.2e}, params max {worst:.3e} lr, {far:.2e} more "
+                  f"than lr/2 apart")
+            check(dm <= 2e-6 and dv <= 1e-7 and worst <= 2 and far <= 1e-3,
+                  f"15c {label}: the card's adam step differs")
+        else:
+            dp = max(float((x - y).abs().max()) for x, y in
+                     zip(tree_leaves(pg), tree_leaves(pc)))
+            # a factored moment is a mean of g^2, so an element whose
+            # gradients nearly cancel has no relative precision: each
+            # leaf is held relative to its largest element
+            dm = max(float((x - y).abs().max() / y.abs().max())
+                     for x, y in zip(tree_leaves(sg["mom"]),
+                                     tree_leaves(sc["mom"])))
+            print(f"15c {label}: loss rel {loss_rel:.2e}, params "
+                  f"{dp:.2e}, moments {dm:.2e} of each leaf's largest")
+            check(dp <= 1e-5 and dm <= 1e-4,
+                  f"15c {label}: the card's adafactor step differs")
+
+    for family, arch in TRAIN_FAMILIES:
+        card_vs_cpu(arch, f"{family} ({arch} smoke)")
+    big = S.BIG_MODEL_PARAMS
+    S.BIG_MODEL_PARAMS = 0
+    try:
+        card_vs_cpu(LM_ARCH, "adafactor (BIG_MODEL_PARAMS patched to 0)")
+    finally:
+        S.BIG_MODEL_PARAMS = big
+
+    # ---- d. the CLI on the card: checkpoints, then a resumed run
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", LM_ARCH, "--smoke", "--device", "cuda",
+                "--batch", "8", "--seq", "64", "--log-every", "1",
+                "--ckpt-every", "2", "--ckpt-dir", d]
+        first = train_cli.main(argv + ["--steps", "4"])
+        check(sorted(os.listdir(d)) == ["step_00000002", "step_00000004"]
+              and len(first["log"]) == 4, "15d: steps or checkpoints")
+        second = train_cli.main(argv + ["--steps", "6"])
+        check([s for s, _, _ in second["log"]] == [5, 6]
+              and latest_step(d) == 6, "15d: the resumed run")
+        back = restore_pytree(second["params"], d)
+        check(all(np.array_equal(b, p.cpu().numpy()) for b, p in
+                  zip(tree_leaves(back), tree_leaves(second["params"]))),
+              "15d: the checkpoint differs from the params")
+        check(all(math.isfinite(x) for _, x, _ in first["log"]
+                  + second["log"]), "15d: losses not finite")
+
+    # ---- e. no kernel ran, and none can run under grad
+    out["k5_launches"] = read_counts("15 training (a-d)",
+                                     {})["flash_attention"]
+    check(raises(NotImplementedError,
+                 lambda: S.make_train_step(cfg, impl="kernel")),
+          "15e: make_train_step(impl='kernel') did not raise")
+    q, k, v = (torch.randn(1, 128, h, 64, device="cuda",
+                           dtype=torch.bfloat16) for h in (4, 2, 2))
+    check(raises(RuntimeError, lambda: fa.flash_attention(
+        q.requires_grad_(), k, v)),
+        "15e: flash_attention ran under grad")
+    read_counts("15e the K5 guard", {})
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"15 training phase: {out['phase_s']:.1f} s; " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2210,6 +2545,10 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo = zoo_lm_phase(torch, zero_counts, read_counts)
     print(f"zoo LM phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- LM training (phase 15)
+    train = train_phase(torch, zero_counts, read_counts)
 
     # ----------------------------------------------------------- result
     src = "src/repro_torch/csrc/hier_agg.cu"
@@ -2253,6 +2592,7 @@ def main() -> int:
     extra["pairwise_sq_dists"] = {"seq_payload_launches": seq["k2"]}
     extra["flash_attention"] = {
         "zoo_launches": zoo["flash_attention"],
+        "train_launches": train["k5_launches"],
         "f32_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
                                 "d=128, causal, f32 (fma)",
                         **kres["flash_attention"].pop("f32_prefill")}}

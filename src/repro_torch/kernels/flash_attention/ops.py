@@ -87,6 +87,20 @@ def _entry(path: str):
     return fn
 
 
+def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> None:
+    """Raise if autograd would differentiate through the kernel: it has
+    no backward, so its output would carry no gradient to q, k and v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward kernel (the reference's "
+            "flash_attention_pallas has no custom_vjp either): a gradient "
+            "through it would silently be dropped. Train through the plain "
+            "attention (impl='plain'), or call the kernel under "
+            "torch.no_grad() or torch.inference_mode()")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0
                          ) -> torch.Tensor:
@@ -95,7 +109,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device, all f32 or all bf16, unit stride in d, Hq % Hkv == 0 and
     d <= 128; raises on anything else and on a refused launch. Returns a
     contiguous (B, S, Hq, d) tensor. Counts each launch in ``launches``
-    and in ``launches_by_path[path]``."""
+    and in ``launches_by_path[path]``.
+
+    The kernel is forward only, as the reference's is (it has no
+    ``custom_vjp``): under grad mode with any of q, k, v requiring grad
+    it raises (:func:`check_no_grad`) instead of returning an output
+    that autograd would treat as a constant."""
+    check_no_grad(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B, S, Hq, d) and k, v (B, S, Hkv, d), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -12,8 +12,9 @@ Port of ``repro.models.attention`` on one device (the reference's
 ``"kernel"`` (the reference's ``"pallas"``: the flash-attention
 dispatcher of ``repro_torch.kernels.flash_attention.ops``, which
 launches the CUDA kernel on CUDA tensors and takes its plain version on
-CPU tensors). Decode always runs the plain ``_sdpa`` on the cache, as
-in the reference.
+CPU tensors). The kernel is forward only, so ``"kernel"`` raises under
+grad mode on inputs that require grad, on every device. Decode always
+runs the plain ``_sdpa`` on the cache, as in the reference.
 """
 from __future__ import annotations
 
@@ -118,6 +119,9 @@ def attn_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if impl == "kernel":
+        # on the CPU too, where the dispatcher's plain version would
+        # differentiate: the kernel it stands for has no backward
+        fa.check_no_grad(q, k, v)
         out = fa.flash_attention(q, k, v, causal=True,
                                  window=cfg.sliding_window).reshape(B, S, -1)
     elif S > CHUNK_Q_THRESHOLD:

@@ -30,10 +30,15 @@ def _normal(generator: torch.Generator, shape, std: float, device,
             dtype) -> torch.Tensor:
     """N(0, std²) drawn where ``generator`` lives (on the card for a CUDA
     generator, so full-width weights never pass through host memory),
-    then moved to ``device``."""
+    then moved to ``device``. On the ``meta`` device nothing is drawn
+    (no generator lives there): the result has the shape and dtype
+    alone."""
+    device = resolve_device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32).mul_(std)
-    return w.to(device=resolve_device(device), dtype=dtype)
+    return w.to(device=device, dtype=dtype)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,

@@ -5,8 +5,13 @@ decoders from one code path).
 * Parameters keep the reference's tree: ``blocks`` is a list of
   super-block dicts whose leaves carry a leading ``n_layers / sb`` axis,
   so weights cross between the packages unchanged (``convert``). A
-  Python loop over that axis takes the place of ``lax.scan``; remat does
-  not apply to a forward.
+  Python loop over that axis takes the place of ``lax.scan``. With
+  ``cfg.remat`` and grad mode on, each super-block runs under
+  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): the
+  backward recomputes its activations instead of keeping them, which
+  changes memory and no value (MoE routing and the SSD intermediates
+  are deterministic functions of the block's input, so the recompute
+  rebuilds them unchanged).
 * Mixed precision: parameters live in f32 and are cast to
   ``cfg.compute_dtype`` at each use; RMSNorm and RoPE run in f32.
 * ``vlm`` prepends ``n_prefix_embeds`` dense embeddings (stripped again
@@ -34,6 +39,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -85,7 +91,9 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda",
     """Random parameters of the reference's tree. Values are drawn where
     ``generator`` lives (a CUDA generator draws on the card) and then
     moved to ``device``; ``jax.random`` draws cannot be matched, so
-    parity tests carry the reference's weights across instead."""
+    parity tests carry the reference's weights across instead. On
+    ``device="meta"`` nothing is drawn: the tree holds the shapes and
+    dtypes alone (``launch.steps.params_struct``)."""
     device = resolve_device(device)
     sb = super_block(cfg)
     nb = cfg.n_layers // sb
@@ -157,14 +165,26 @@ def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, idx: int, impl: str
 def backbone(params, x: torch.Tensor, cfg: ModelConfig, *,
              impl: str = "plain") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) embedded input -> (hidden, the MoE layers' summed aux
-    loss; zero without MoE layers)."""
+    loss; zero without MoE layers). Super-blocks are rematerialised
+    under ``cfg.remat`` when grad mode is on. ``torch.func``'s ``grad``
+    refuses the saved-tensor hooks of ``checkpoint``, so what it trains
+    runs with remat off (``registry.get_hfl_spec``'s payloads)."""
     sb = super_block(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for b in range(cfg.n_layers // sb):
+
+    def block(b, x, aux):
         for j in range(sb):
             x, a = _apply_layer(_at(params["blocks"][j], b), x, cfg, j, impl)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for b in range(cfg.n_layers // sb):
+        if remat:
+            x, aux = checkpoint(block, b, x, aux, use_reentrant=False)
+        else:
+            x, aux = block(b, x, aux)
     return x, aux
 
 

@@ -50,7 +50,9 @@ own figure). bf16: both sides compute in f32 from the same bf16 inputs
 (the kernel's tensor-core P.V takes P as two bf16 parts, ~2^-16 apart
 from f32) and round the output once, so they differ by at most one
 bf16 ulp of the value, 2^-7 relative, plus 1e-5 absolute for f32 noise
-on outputs near zero.
+on outputs near zero. The kernel is forward only: under grad mode on
+inputs that require grad it raises before launching, and runs under
+``no_grad`` and ``inference_mode``.
 """
 import numpy as np
 import pytest
@@ -372,6 +374,31 @@ def _launch_checked(q, k, v, path, **kw):
     by0[path] += 1
     assert fa.flash_attention_cuda.launches_by_path == by0
     return got
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_grad(cuda):
+    """The kernel is forward only (as the reference's is): under grad mode
+    on inputs that require grad it raises before launching; under
+    ``no_grad`` and ``inference_mode`` it runs."""
+    q, k, v = _qkv(1, 128, 4, 2, 64, torch.bfloat16, cuda, seed=5)
+    n0 = fa.flash_attention_cuda.launches
+    for args in ((q.clone().requires_grad_(), k, v),
+                 (q, k, v.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa.flash_attention(*args)
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa.flash_attention_cuda(*args)
+    assert fa.flash_attention_cuda.launches == n0
+    ref = fa.flash_attention_ref(q, k, v)
+    with torch.no_grad():
+        got = _launch_checked(q.clone().requires_grad_(), k, v, "wgmma")
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
+    with torch.inference_mode():
+        got = _launch_checked(q, k, v, "wgmma")
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

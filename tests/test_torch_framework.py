@@ -212,7 +212,8 @@ assert len(names) >= 20, names
 assert {"repro_torch.core.sweep", "repro_torch.core.assignment.hfel",
         "repro_torch.core.scheduling.schedulers",
         "repro_torch.core.async_engine", "repro_torch.core.traffic",
-        "repro_torch.checkpoint.ckpt", "repro_torch.launch.serve"
+        "repro_torch.checkpoint.ckpt", "repro_torch.launch.serve",
+        "repro_torch.data.pipeline", "repro_torch.launch.train"
         } <= set(names), names
 import repro_torch.core.sweep as sweep
 assert sweep.SweepRunner is repro_torch.SweepRunner
