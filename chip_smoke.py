@@ -207,6 +207,33 @@ drawn on the card from a seed, bf16 compute):
       steps, then a run that resumes from step 4;
    e. no launch counter moved in a-d; ``make_train_step(impl="kernel")``
       raises, and K5 raises on CUDA inputs that require grad.
+16. The multi-device layer (``launch.mesh``, ``parallel``, the mesh
+   steps, ``SweepRunner(shard=True)``) on the one card:
+   a. a one-rank NCCL group (``file://`` store) and ``sweep_mesh()``:
+      ``SweepRunner(shard=True)`` over phase 7's SWEEP_LANES lanes, the
+      IKC clustering (K2 1 920, its labels equal to phase 7a's) and 2
+      host rounds (K1 12), then 2 fused rounds (K1 12), each held bitwise to
+      phase 7's ``shard=False`` runs (7b, 7d geo) in records and params;
+      wall a round next to phase 7a's;
+   b. two ranks of this script (``--lanes-child``) sharing the card over
+      a gloo host group: MESH_LANES=3 lanes padded to 4 (one dead lane),
+      2 host rounds with phase 7a's labels, against phase 7b's lanes 0-2
+      (iters and H exact, T_i/E_i rtol 1e-4 atol 1e-6, accuracy within
+      SHARD_ACC_SAMPLES test samples: tests/test_sweep_shard.py's); wall
+      a round and each rank's peak memory;
+   c. ``make_train_step(cfg, mesh=make_debug_mesh())`` on phase 15's
+      chatglm3-6b (full width, TRAIN_LAYERS layers, B=8 x 4096, 8
+      microbatches, bf16, adam, remat) against the unsharded step from
+      the same init and batch (held on the host; REMAT_* limits), then
+      step wall, tokens/s and peak next to phase 15a's: DTensor's cost
+      on one rank; no kernel;
+   d. ``make_prefill_step(full, "kernel", mesh=...)`` on chatglm3-6b at
+      full width and depth, B=2 x 4096: K5 through ``local_map``, 28
+      ``wgmma`` launches, logits bitwise equal to the unsharded kernel
+      prefill; wall next to it;
+   e. with two or more cards, two ranks (``--steps-child``) on a (1, 2)
+      NCCL mesh: chatglm3's smoke train step and kernel prefill against
+      one rank's; with one card a line says that they were not run.
 Each phase prints its peak device memory.
 
 The line before the last is a JSON object with one entry per kernel
@@ -214,15 +241,19 @@ The line before the last is a JSON object with one entry per kernel
 kernels' times from their edge hop line; K1's and int8 K4's entries
 also carry the sweep's edge hop and their launches in phases 7a and 7e,
 K1's the sweep's figures; K1's and K2's the launches of phase 13 by
-arch; K5's the launches of phases 14 and 15 and the f32 path's row); the last
+arch; K5's the launches of phases 14 and 15 and the f32 path's row;
+K1's, K2's and K5's the launches of phase 16, whose K5 launches also
+count in K5's ``launches``); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -352,6 +383,10 @@ TRAIN_FAMILIES = (("dense", "chatglm3-6b"), ("vlm", "internvl2-26b"),
                   ("moe", "qwen3-moe-235b-a22b"), ("ssm", "mamba2-2.7b"),
                   ("hybrid", "jamba-1.5-large-398b"))
 SMOKE_LR = 1e-3
+# phase 16b: lanes over 2 ranks sharing the card (3, padded to 4), and
+# the accuracy tolerance of tests/test_sweep_shard.py ("a couple of test
+# samples"; costs rtol 1e-4, atol 1e-6)
+MESH_LANES, SHARD_ACC_SAMPLES = 3, 2
 
 
 def check(cond, msg):
@@ -970,6 +1005,9 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
           and np.array_equal(rk["E_i"], rp["E_i"]),
           "sweep c: T_i/E_i differ between the aggregation backends")
     check(dmax <= PARAM_TOL, f"sweep c: params differ by {dmax}")
+    # phase 16a runs the same 2 rounds lane-sharded and is held to these
+    out["p16"] = {"labels": labels, "host": (rk, {
+        k: v.cpu() for k, v in kern.params_b.items()})}
     del plain
     zero_counts()
     cfg = FrameworkConfig(H=H, K=K, scheduler="ikc", assigner="geo",
@@ -1050,6 +1088,9 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
                       f"sweep d {assign}: fused {k} differs from oracle")
             check(dmax <= PARAM_TOL, f"sweep d {assign}: params {dmax}")
             out[f"fused_{assign}_s"], out[f"oracle_{assign}_s"] = wf, wo
+            if assign == "geo":
+                out["p16"]["fused"] = (rf, {k: v.cpu()
+                                            for k, v in pf.items()})
     finally:
         sw.sweep_scan, sw.hfel_search_traced = real_scan, real_search
     torch.cuda.synchronize()
@@ -1521,8 +1562,8 @@ class MoERouting:
         self.calls, self.replay = [], list(replay)
 
     def __enter__(self):
-        def spy(params, xf, cfg):
-            r = self.real(params, xf, cfg)
+        def spy(params, xf, cfg, gd=1):
+            r = self.real(params, xf, cfg, gd)
             if self.replay:
                 r = forced_routing(r, *self.replay.pop(0))
             self.calls.append((r.top_idx, r.keep.reshape(r.top_idx.shape)))
@@ -1804,7 +1845,7 @@ def zoo_lm_phase(torch, zero_counts, read_counts):
         prefill(cfg2, params, prompt_of(cfg2, 1, SSD_SEQ), "plain")
     finally:
         m2.ssd_chunked = real_chunked
-    x, dt, A, Bm, Cm, chunk = seen[0]
+    x, dt, A, Bm, Cm, chunk = seen[0][:6]
     (yc, tc), (yr, tr) = (timed(torch, lambda: m2.ssd_chunked(
         x, dt, A, Bm, Cm, chunk)), timed(torch, lambda: m2.ssd_reference(
             x, dt, A, Bm, Cm)))
@@ -2030,7 +2071,9 @@ def train_phase(torch, zero_counts, read_counts):
     t0 = time.perf_counter()
 
     # ---- a. chatglm3-6b at full width, TRAIN_LAYERS of its 28 layers
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
     cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
     check(cfg.dtype == "bfloat16" and cfg.remat and cfg.microbatches == 8,
           f"15a: {cfg.name} is not the bf16, remat, 8-microbatch config")
@@ -2074,11 +2117,13 @@ def train_phase(torch, zero_counts, read_counts):
                     f"S={TRAIN_SEQ}, mb={cfg.microbatches})",
                     lambda: step(params, opt_state, batch), warm_up=False)
     print(f"15a step wall {wall:.4f} s (median of steps 2-{TRAIN_STEPS}), "
-          f"{tokens / wall:,.0f} tokens/s, peak memory {peak:.2f} GB, "
+          f"{tokens / wall:,.0f} tokens/s, peak memory {peak:.2f} GB "
+          f"({resident:.2f} GB resident before), "
           f"device busy {busy:.1%}, model-flops share 6*N*tokens/(t*989e12)"
           f" {mfu:.1%}")
     out["a"] = {"step_s": wall, "walls": walls, "losses": losses,
-                "tok_s": tokens / wall, "peak_gb": peak, "busy": busy,
+                "tok_s": tokens / wall, "peak_gb": peak,
+                "resident_gb": resident, "busy": busy,
                 "mfu": mfu, "n_params": n_params}
 
     # the path's own step (mb 8, remat on) against remat off and mb 2,
@@ -2256,6 +2301,381 @@ def train_phase(torch, zero_counts, read_counts):
     read_counts("15e the K5 guard", {})
     out["phase_s"] = time.perf_counter() - t0
     print(f"15 training phase: {out['phase_s']:.1f} s; " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------------ phase 16
+
+def _world(sp):
+    """The Table-I world of phases 3-7 (population and partition of seed
+    0, fmnist_syn 20 000/2 000, 400-700 samples a device)."""
+    from repro_torch.core.cost_model import sample_population
+    from repro_torch.data import make_dataset, partition_noniid
+    pop = sample_population(sp, seed=0)
+    X, y, Xt, yt = make_dataset("fmnist_syn")
+    return pop, partition_noniid(X, y, Xt, yt, n_devices=sp.n_devices,
+                                 size_range=(400, 700), seed=0)
+
+
+def _ikc(sw, sp, fed, seeds, labels=None, H=50, K=10):
+    return [sw.build_scheduler("ikc", fed, sp, H, K=K, seed=s,
+                               use_kernel=True,
+                               labels=None if labels is None else labels[s])
+            for s in seeds]
+
+
+def _children(job, world, out, timeout):
+    """``world`` processes of this script running ``job`` (one a rank),
+    joined through a file store under ``out``; all of them are stopped
+    before this returns. Returns their exit codes and output tails."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), f"--{job}", str(r),
+         str(world), str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], logs
+
+
+def lanes_child(rank: int, world: int, out: str) -> None:
+    """Phase 16b's rank: MESH_LANES lanes of the Table-I world padded to
+    ``world`` ranks over a gloo (host) group, every rank on cuda:0 (the
+    lanes need no device collective), 2 geo host rounds with the IKC
+    labels of phase 7a; rank 0 writes the records, walls and every
+    rank's peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import sweep as sw
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.kernels.hier_agg import ops as ha
+    from repro_torch.launch.mesh import sweep_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        out, "group"), rank=rank, world_size=world)
+    try:
+        sp = SystemParams()
+        pop, fed = _world(sp)
+        labels = np.load(os.path.join(out, "labels.npy"))
+        seeds = list(range(MESH_LANES))
+        runner = sw.SweepRunner(sp, [(pop, fed)] * MESH_LANES, lr=0.01,
+                                alloc_steps=200, agg_kernel=True, shard=True,
+                                mesh=sweep_mesh(device_type="cpu"),
+                                device="cuda")
+        scheds = _ikc(sw, sp, fed, seeds, labels)
+        torch.cuda.reset_peak_memory_stats()
+        ha.masked_aggregate_leaves_batched_cuda.launches = 0
+        res, wall = timed(torch, lambda: runner.run(scheds, 2, seeds=seeds))
+        peaks = [None] * world
+        dist.all_gather_object(peaks, torch.cuda.max_memory_allocated())
+        if rank == 0:
+            np.savez(os.path.join(out, "lanes.npz"), wall=wall,
+                     peaks=np.array(peaks), S_pad=runner.S_pad,
+                     lanes=np.array(runner.lanes),
+                     k1=ha.masked_aggregate_leaves_batched_cuda.launches,
+                     **{k: np.asarray(res[k]) for k in
+                        ("acc", "T_i", "E_i", "iters", "H")})
+    finally:
+        dist.destroy_process_group()
+
+
+def steps_child(rank: int, world: int, out: str) -> None:
+    """Phase 16e's rank (run only with two or more cards): chatglm3-6b's
+    smoke config through ``make_train_step`` and the kernel prefill on a
+    (1, world) data x model NCCL mesh, each rank on its own card; rank 0
+    writes the sharded and the one-rank results."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils import tree_leaves
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        out, "group"), rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_smoke_config(LM_ARCH), microbatches=2)
+        params = T.init(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                        cfg, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tok = torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                            device="cuda")
+        batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+        step, opt = S.make_train_step(cfg, lr=SMOKE_LR)
+        p1, _, m1 = step(params, opt.init(params), batch)
+        mstep, mopt = S.make_train_step(cfg, mesh=mesh, lr=SMOKE_LR)
+        dp = S.shard_tree(params, shd.param_shardings(params, cfg, mesh))
+        p2, _, m2 = mstep(dp, mopt.init(dp), S.shard_tree(
+            batch, S.input_shardings(batch, mesh)))
+        worst = max(float((a - b.full_tensor()).abs().max())
+                    for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+        with torch.no_grad():
+            want = S.make_prefill_step(cfg, "kernel")(params,
+                                                      {"tokens": tok})
+            got = S.make_prefill_step(cfg, "kernel", mesh=mesh)(
+                dp, S.shard_tree({"tokens": tok}, S.input_shardings(
+                    {"tokens": tok}, mesh))).full_tensor()
+        if rank == 0:
+            np.savez(os.path.join(out, "steps.npz"),
+                     loss=[float(m1["loss"]), float(m2["loss"])],
+                     worst_lr=worst / SMOKE_LR,
+                     prefill=[float((want - got).abs().max()),
+                              float(want.abs().max())])
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
+               read_counts):
+    """Phase 16: the multi-device layer on one card (see the module
+    docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import sweep as sw
+    from repro_torch.data import token_batch_iterator
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_debug_mesh, sweep_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils import tree_leaves, tree_map
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "group"), rank=0, world_size=1)
+    try:
+        # ---- a. SweepRunner(shard=True) on a one-rank NCCL lane mesh
+        pop, fed = _world(sp)
+        S_ = SWEEP_LANES
+        seeds = list(range(S_))
+        kw = dict(lr=0.01, alloc_steps=200, agg_kernel=True)
+        per_round = sp.Q + 1
+        mesh = sweep_mesh()
+        zero_counts()
+        runner = sw.SweepRunner(sp, [(pop, fed)] * S_, shard=True, mesh=mesh,
+                                **kw)
+        scheds = _ikc(sw, sp, fed, seeds)
+        labels = [sc.state.clusters.copy() for sc in scheds]
+        res, wall = timed(torch, lambda: runner.run(scheds, 2, seeds=seeds))
+        k1 = read_counts("16a (lane mesh, 1 rank: IKC clustering + 2 host "
+                         "rounds)", {"masked_aggregate": 2 * per_round,
+                                     "pairwise_sq_dists":
+                                         S_ * 8 * (10 - 1 + 50 + 1)})
+        out["a_k1"] = k1["masked_aggregate"]
+        out["a_k2"] = k1["pairwise_sq_dists"]
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(labels, ref7["labels"])),
+              "16a: the IKC labels differ from phase 7a's")
+
+        def held(tag, got, params, want, want_params):
+            gaps = {k: float(np.abs(np.asarray(got[k], np.float64)
+                                    - np.asarray(want[k], np.float64)).max())
+                    for k in ("acc", "T_i", "E_i", "iters")}
+            dp = max(float((params[k].cpu() - v).abs().max())
+                     for k, v in want_params.items())
+            print(f"16a {tag}: shard=True vs phase 7's shard=False, 2 "
+                  f"rounds: max |diff| {gaps}, params {dp:.3e} (bitwise "
+                  "expected)")
+            check(all(v <= 0 for v in gaps.values()) and dp <= PARAM_TOL,
+                  f"16a {tag}: sharded sweep differs: {gaps}, {dp}")
+            return max(list(gaps.values()) + [dp])
+
+        out["a_host_gap"] = held("host loop", res, runner.params_b,
+                                 *ref7["host"])
+        per = wall / 2
+        print(f"16a host loop: {per:.3f} s a round ({S_} lanes, 1 rank) vs "
+              f"phase 7a's {round7_s:.3f} s; H={res['H']}")
+        zero_counts()
+        rf, wf = timed(torch, lambda: runner.run(
+            _ikc(sw, sp, fed, seeds, labels), 2, seeds=seeds, fused=True))
+        read_counts("16a fused (2 rounds)",
+                    {"masked_aggregate": 2 * per_round})
+        out["a_k1"] += 2 * per_round
+        out["a_fused_gap"] = held("fused", rf, runner.params_b,
+                                  *ref7["fused"])
+        print(f"16a fused: {wf / 2:.3f} s a round")
+        out.update(a_round_s=per, a_fused_round_s=wf / 2,
+                   round7_s=round7_s)
+        del runner
+        # the two ranks below share the card: hand this process's cached
+        # blocks back first
+        torch.cuda.empty_cache()
+
+        # ---- b. two ranks on the one card over a gloo host group
+        np.save(os.path.join(tmp, "labels.npy"), np.stack(labels))
+        codes, logs = _children("lanes-child", 2, tmp, timeout=600)
+        for r, (c, log) in enumerate(zip(codes, logs)):
+            print(f"16b rank {r}: exit {c}" + ("" if c == 0 else
+                                                f"\n{log}"))
+        check(codes == [0, 0], f"16b: rank exits {codes}")
+        got = np.load(os.path.join(tmp, "lanes.npz"))
+        want, _ = ref7["host"]
+        n_test = len(fed.y_test)
+        gaps = {k: float(np.abs(got[k] - np.asarray(want[k])[:MESH_LANES])
+                         .max()) for k in ("acc", "T_i", "E_i")}
+        print(f"16b {MESH_LANES} lanes padded to {int(got['S_pad'])} over 2 "
+              f"ranks on one card: {float(got['wall']) / 2:.3f} s a round; "
+              f"peaks {np.round(got['peaks'] / 1e9, 2).tolist()} GB; K1 "
+              f"{int(got['k1'])} launches on rank 0; vs phase 7's lanes "
+              f"0-{MESH_LANES - 1}: max |diff| {gaps} (T_i/E_i rtol 1e-4 "
+              f"atol 1e-6, acc {SHARD_ACC_SAMPLES} test samples)")
+        check(np.array_equal(got["iters"], np.asarray(want["iters"])[
+            :MESH_LANES]) and int(got["H"]) == want["H"], "16b: iters/H")
+        for k in ("T_i", "E_i"):
+            check(np.allclose(got[k], np.asarray(want[k])[:MESH_LANES],
+                              rtol=1e-4, atol=1e-6), f"16b: {k} differs")
+        check(gaps["acc"] <= SHARD_ACC_SAMPLES / n_test + 1e-9,
+              f"16b: accuracy {gaps['acc']}")
+        out.update(b_round_s=float(got["wall"]) / 2,
+                   b_peaks_gb=(got["peaks"] / 1e9).tolist(), b_gaps=gaps)
+        del pop, fed
+        torch.cuda.empty_cache()
+
+        # ---- c. the train step on a one-rank debug mesh
+        cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+        it = token_batch_iterator(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                  seed=LM_SEED)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+
+        def fresh():
+            g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+            return T.init(g, cfg, device="cuda")
+
+        params = fresh()
+        step, opt = S.make_train_step(cfg, lr=TRAIN_LR)
+        p1, state1, m1 = step(params, opt.init(params), batch)
+        p1 = tree_map(lambda x: x.cpu(), p1)
+        l1 = float(m1["loss"])
+        # its moments too: kept, they would add 10.8 GB to the mesh step's
+        # peak below
+        del params, state1, m1
+        torch.cuda.empty_cache()
+        dmesh = make_debug_mesh()
+        zero_counts()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()      # as phase 15a's
+        resident = torch.cuda.memory_allocated() / 1e9
+        params = S.shard_tree(fresh(), shd.param_shardings(
+            S.params_struct(cfg), cfg, dmesh))
+        dbatch = S.shard_tree(batch, S.input_shardings(batch, dmesh))
+        mstep, mopt = S.make_train_step(cfg, mesh=dmesh, lr=TRAIN_LR)
+        state = mopt.init(params)
+        # each step's result rebinds the params and moments, as in 15a
+        (params, state, m2), first = timed(
+            torch, lambda: mstep(params, state, dbatch))
+        l2 = float(m2["loss"])
+        p2_first = tree_map(lambda x: x.to_local().cpu(), params)
+        walls = []
+        for _ in range(TRAIN_STEPS - 1):
+            (params, state, m2), secs = timed(
+                torch, lambda: mstep(params, state, dbatch))
+            walls.append(secs)
+        read_counts("16c (mesh train steps)", {})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        p2 = params
+        worst, far = update_gap(torch, p1, p2_first, TRAIN_LR)
+        del p1, p2_first
+        wall = float(np.median(walls))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        a15 = train15["a"]
+        print(f"16c {cfg.name} n_layers={TRAIN_LAYERS} on make_debug_mesh() "
+              f"(1 rank, DTensor): loss {l2:.6f} vs unsharded {l1:.6f}, "
+              f"params max |diff| {worst:.3e} lr, {far:.3e} of the elements "
+              f"more than lr/2 apart (limits: loss rel {REMAT_LOSS_REL:g}, "
+              f"{REMAT_FAR:g}); step {wall:.4f} s (first {first:.3f} s), "
+              f"{tokens / wall:,.0f} tokens/s, peak {peak:.2f} GB "
+              f"({resident:.2f} GB resident before) vs phase 15a's "
+              f"{a15['step_s']:.4f} s, {a15['tok_s']:,.0f} tokens/s, "
+              f"{a15['peak_gb']:.2f} GB ({a15['resident_gb']:.2f} GB)")
+        check(abs(l2 - l1) <= REMAT_LOSS_REL * abs(l1) and far <= REMAT_FAR
+              and worst <= 2, "16c: the mesh step differs from the "
+              "unsharded one")
+        check(all(isinstance(x, torch.distributed.tensor.DTensor)
+                  for x in tree_leaves(p2)), "16c: params left the mesh")
+        out.update(c_step_s=wall, c_tok_s=tokens / wall, c_peak_gb=peak,
+                   c_resident_gb=resident, c_loss_gap=abs(l2 - l1),
+                   c_worst_lr=worst, c_far=far, c_first_s=first)
+        del params, p2, state, m2, dbatch
+        torch.cuda.empty_cache()
+
+        # ---- d. the kernel prefill on the one-rank mesh: K5 per rank
+        full = get_config(LM_ARCH)
+        g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+        params = T.init(g, full, device="cuda")
+        tokens = torch.randint(0, full.vocab_size, (LM_BATCH, LM_SEQ),
+                               generator=g, device="cuda")
+        with torch.no_grad():
+            plain_step = S.make_prefill_step(full, "kernel")
+            plain_step(params, {"tokens": tokens})              # warm-up
+            want, want_s = timed(torch, lambda: plain_step(
+                params, {"tokens": tokens}))
+            dparams = S.shard_tree(params, shd.param_shardings(
+                params, full, dmesh))
+            dtok = S.shard_tree({"tokens": tokens},
+                                S.input_shardings({"tokens": tokens}, dmesh))
+            mesh_step = S.make_prefill_step(full, "kernel", mesh=dmesh)
+            mesh_step(dparams, dtok)                           # warm-up
+            zero_counts()
+            got, got_s = timed(torch, lambda: mesh_step(dparams, dtok))
+            k5 = read_counts("16d (mesh kernel prefill)",
+                             {"flash_attention": full.n_layers})
+            by_path = fa.flash_attention_cuda.launches_by_path
+            check(by_path["wgmma"] == full.n_layers,
+                  f"16d: K5 paths {by_path}")
+            diff = float((want - got.full_tensor()).abs().max())
+        print(f"16d {full.name} (28 layers, bf16) kernel prefill B="
+              f"{LM_BATCH} S={LM_SEQ} on the one-rank mesh: {got_s:.4f} s vs "
+              f"{want_s:.4f} s unsharded in this run (0.225 s in PERF.md); "
+              f"K5 {by_path}; logits max |diff| {diff:.3e} (bitwise "
+              "expected)")
+        check(diff == 0.0, f"16d: mesh prefill differs by {diff}")
+        out.update(d_prefill_s=got_s, d_plain_prefill_s=want_s,
+                   d_k5=k5["flash_attention"], d_diff=diff)
+        del params, dparams, want, got
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- e. model sharding over cards
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"16e: not run: the 2-rank model steps over NCCL need two "
+              f"cards, this machine has {n}")
+        out["e"] = "not run: one card"
+    else:
+        d = tempfile.mkdtemp(prefix="chip_smoke_steps_")
+        codes, logs = _children("steps-child", 2, d, timeout=600)
+        check(codes == [0, 0], f"16e: rank exits {codes}: {logs}")
+        got = np.load(os.path.join(d, "steps.npz"))
+        (l1, l2), (diff, scale) = got["loss"], got["prefill"]
+        print(f"16e chatglm3 smoke (f32) on a (1, 2) data x model NCCL "
+              f"mesh over 2 cards: loss {l2:.6f} vs {l1:.6f} on one, adam "
+              f"params max |diff| {float(got['worst_lr']):.3e} lr; kernel "
+              f"prefill max |diff| {diff:.3e} of {scale:.3f}")
+        check(abs(l2 - l1) <= 1e-5 * abs(l1) and got["worst_lr"] <= 2
+              and diff <= LM_F32_TOL * scale, "16e: 2-card steps differ")
+        out["e"] = "run"
     return out
 
 
@@ -2512,6 +2932,7 @@ def main() -> int:
     # ------------------------------------------------ sweep (phase 7)
     t0 = time.perf_counter()
     sweep = sweep_phase(torch, sp, pop, fed, zero_counts, read_counts)
+    ref7 = sweep.pop("p16")
     sweep["phase_s"] = time.perf_counter() - t0
     print(f"sweep phase: {sweep['phase_s']:.1f} s")
     del X, y, Xt, yt, fed, pop, labels
@@ -2549,6 +2970,15 @@ def main() -> int:
 
     # ------------------------------------------- LM training (phase 15)
     train = train_phase(torch, zero_counts, read_counts)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------- the multi-device layer (phase 16)
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, sp, ref7, sweep["round_s"], train, zero_counts,
+                      read_counts)
+    mesh["phase_s"] = time.perf_counter() - t0
+    print(f"mesh phase: {mesh['phase_s']:.1f} s; " + json.dumps(mesh))
+    launches["flash_attention"] += mesh["d_k5"]
 
     # ----------------------------------------------------------- result
     src = "src/repro_torch/csrc/hier_agg.cu"
@@ -2589,8 +3019,11 @@ def main() -> int:
                  "sweep_hop": sweep_hop("masked_decode_aggregate_i8")}}
     extra["masked_aggregate"]["sweep"] = sweep
     extra["masked_aggregate"]["seq_payload_launches"] = seq["k1"]
-    extra["pairwise_sq_dists"] = {"seq_payload_launches": seq["k2"]}
+    extra["masked_aggregate"]["mesh_launches"] = mesh["a_k1"]
+    extra["pairwise_sq_dists"] = {"seq_payload_launches": seq["k2"],
+                                  "mesh_launches": mesh["a_k2"]}
     extra["flash_attention"] = {
+        "mesh_launches": mesh["d_k5"],
         "zoo_launches": zoo["flash_attention"],
         "train_launches": train["k5_launches"],
         "f32_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
@@ -2617,4 +3050,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] in ("--lanes-child",
+                                              "--steps-child"):
+        {"--lanes-child": lanes_child, "--steps-child": steps_child}[
+            sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

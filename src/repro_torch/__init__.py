@@ -40,8 +40,17 @@ Module map (port -> reference):
                                                KV cache; impl "plain"/"kernel")
 ``repro_torch.models.transformer``             ``repro.models.transformer`` (every family;
                                                forward, loss_fn, decode)
-``repro_torch.launch.steps``                   ``repro.launch.steps`` (make_serve_step,
-                                               make_prefill_step)
+``repro_torch.launch.steps``                   ``repro.launch.steps`` (the train, two-tier,
+                                               serve and prefill steps, with or
+                                               without a mesh; structs; shard_tree,
+                                               full_tree)
+``repro_torch.launch.mesh``                    ``repro.launch.mesh`` (production, debug and
+                                               sweep DeviceMeshes; init_group)
+``repro_torch.parallel.sharding``              ``repro.parallel.sharding`` (PartitionSpec,
+                                               the param/act/cache rules, lane
+                                               helpers, DTensor placements)
+``repro_torch.parallel.sharder``               ``repro.parallel.sharder`` (Sharder,
+                                               NoopSharder, MeshSharder, NOOP)
 ``repro_torch.launch.serve_lm``                ``repro.launch.serve_lm`` (the LM serving CLI)
 ``repro_torch.core.local_train``               ``repro.core.local_train``
 ``repro_torch.core.compression``               ``repro.core.compression`` (codecs, error feedback)
@@ -68,7 +77,8 @@ Module map (port -> reference):
                                                the lane-batched round body)
 ``repro_torch.core.sweep``                     ``repro.core.sweep`` (SweepRunner: host loop,
                                                lane batching, lane_chunk, fused engine,
-                                               codec carries; no ``shard=True``)
+                                               codec carries, ``shard=True`` over the
+                                               ranks of a lane mesh)
 ``repro_torch.core.traffic``                   ``repro.core.traffic`` (TrafficParams,
                                                TrafficGenerator)
 ``repro_torch.core.async_engine``              ``repro.core.async_engine`` (AsyncConfig,

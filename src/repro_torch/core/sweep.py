@@ -16,8 +16,12 @@ at the same per-lane result), and ``run(fused=True)`` runs the whole
 R-round sweep — scheduling, assignment, rounds, eval and done-masks —
 on the device with no host synchronisation between the first round and
 the last (``sweep_scan``); ``fused="oracle"`` runs the same step with a
-read-back after each round. The reference's ``shard=True`` (lanes laid
-over a device mesh) is not ported yet: it raises ``NotImplementedError``.
+read-back after each round. ``shard=True`` lays the lanes over the ranks
+of a 1-D ``("lane",)`` mesh (``launch.mesh.sweep_mesh``): each rank runs
+the same engines on its contiguous block of lanes, on its own device,
+with no collective inside a round (``sweep_round_sharded``,
+``sweep_scan_sharded``); the per-round records are gathered over the
+group, so every rank returns the unsharded result.
 
 Semantics per lane match ``HFLFramework`` with ``engine="fused"``:
 Algorithm-1 training weighted by the cost-model dataset sizes pop.D,
@@ -38,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
 from repro_torch.configs.registry import get_hfl_spec
@@ -51,14 +56,15 @@ from repro_torch.core.framework import build_scheduler, round_step_lanes
 from repro_torch.core.hfl import pad_device_data
 from repro_torch.core.scheduling.schedulers import TracedFedAvg, _topup
 from repro_torch.data.partition import FederatedData
+from repro_torch.parallel.sharding import mesh_axes, pad_lanes
 from repro_torch.utils import resolve_device, tree_bytes, tree_map
-
-_SHARD_ITEM = "ROADMAP Queue 1 item 11"
 
 
 def _draw_cohorts(schedulers: Sequence, rngs: Sequence, N: int,
                   prev: Optional[Sequence] = None,
-                  done: Optional[np.ndarray] = None) -> List[np.ndarray]:
+                  done: Optional[np.ndarray] = None,
+                  width: Optional[Callable[[int], int]] = None
+                  ) -> Tuple[List[np.ndarray], int]:
     """One round's cohorts of all lanes on the host, in the rng order the
     host loop and the fused precompute share: every live lane's schedule
     draw, then the top-ups. A done lane reuses its ``prev`` cohort and
@@ -67,16 +73,21 @@ def _draw_cohorts(schedulers: Sequence, rngs: Sequence, N: int,
     lanes are topped up from their unscheduled pool (Alg. 3/4 lines
     12-15) to the round's largest cohort, so every lane shares one
     (S, H) shape, through the scheduler's ``topup_to`` where it has one
-    (IKC records the extra picks in its rotation state)."""
+    (IKC records the extra picks in its rotation state). ``width`` maps
+    the largest cohort of these lanes to the round's (a sharded sweep's
+    maximum over every rank's lanes). Returns (cohorts, the round's
+    width H)."""
     scheds = [prev[s] if done is not None and done[s]
               else np.asarray(sched.schedule(rngs[s]))
               for s, sched in enumerate(schedulers)]
-    H = max(len(c) for c in scheds)
+    H = max((len(c) for c in scheds), default=0)
+    if width is not None:
+        H = width(H)
     return [np.asarray(sched.topup_to(c, H, rng)
                        if hasattr(sched, "topup_to")
                        else _topup(list(c), N, H, rng))
             if len(c) < H else c
-            for sched, rng, c in zip(schedulers, rngs, scheds)]
+            for sched, rng, c in zip(schedulers, rngs, scheds)], H
 
 
 def _lane_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -275,6 +286,55 @@ def sweep_scan(apply_fn, sp: cm.SystemParams, sp_assign, params_b, u_b,
             (torch.stack(accs), torch.stack(Ts), torch.stack(Es)))
 
 
+# ------------------------------------------------------ lane sharding
+
+def gather_lanes(x, mesh):
+    """Concatenate every rank's block of a lane-major array (numpy, or a
+    tensor, returned on its device) over the 1-D lane ``mesh``'s group,
+    in rank order: (block, ...) -> (S_pad, ...). Each rank's own block
+    is kept as it is."""
+    group = mesh.get_group()
+    if dist.get_world_size(group) == 1:
+        return x
+    host = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, host, group=group)
+    parts[dist.get_rank(group)] = host
+    out = np.concatenate(parts)
+    return (torch.as_tensor(out, device=x.device)
+            if isinstance(x, torch.Tensor) else out)
+
+
+def sweep_round_sharded(apply_fn, sp: cm.SystemParams, params_b, u_b, D_b,
+                        p_b, g_b, g_cloud_b, B_m_b, X_b, y_b, mask_b,
+                        sizes_b, sched_b, assign_b, lr, *, mesh, **kw):
+    """``sweep_round`` laid out over a 1-D ``("lane",)`` mesh: every
+    lane-stacked argument is this rank's contiguous block of the S_pad
+    lanes (``SweepRunner`` pads S with dead, done-masked lanes), and the
+    round runs on it as plain tensors on this rank's device, with no
+    collective inside it (lanes are independent, as in the reference's
+    ``shard_map``). Returns this rank's params block (and codec state)
+    and the (S_pad,) T_i/E_i of every lane, gathered over the group.
+    Other keywords as ``sweep_round``."""
+    out = sweep_round(apply_fn, sp, params_b, u_b, D_b, p_b, g_b, g_cloud_b,
+                      B_m_b, X_b, y_b, mask_b, sizes_b, sched_b, assign_b,
+                      lr, **kw)
+    T_i, E_i = out[1]
+    return (out[0], (gather_lanes(T_i, mesh), gather_lanes(E_i, mesh)),
+            *out[2:])
+
+
+def sweep_scan_sharded(*args, mesh, **kw):
+    """``sweep_scan`` over a 1-D ``("lane",)`` mesh: this rank's lane
+    block runs the R rounds as ``sweep_scan`` does (its done-mask freezes
+    its own lanes; nothing crosses ranks inside the scan), and the (R,
+    block) accuracy and cost records are then gathered to (R, S_pad).
+    Returns (this rank's carry, gathered records)."""
+    carry, recs = sweep_scan(*args, **kw)
+    return carry, tuple(gather_lanes(r.transpose(0, 1), mesh).transpose(0, 1)
+                        for r in recs)
+
+
 # ------------------------------------------------------- host assigners
 
 def _mod_assign(pop: cm.Population, sched: np.ndarray, rng) -> np.ndarray:
@@ -340,9 +400,22 @@ class SweepRunner:
     card raises).
 
     lane_chunk=k runs the lanes in sequential chunks of k (must divide
-    S): less device memory for the same per-lane result. ``shard=True``
-    and ``mesh=`` (the reference's lane-parallel layout over several
-    devices) raise ``NotImplementedError``.
+    the lane block): less device memory for the same per-lane result.
+
+    shard=True lays the lanes over the ranks of ``mesh`` (default
+    ``launch.mesh.sweep_mesh()``; a mesh whose axes are not ``("lane",)``
+    raises ``ValueError``, and so does a missing process group,
+    ``RuntimeError``). S is padded to ``S_pad = pad_lanes(S, world)``
+    with dead lanes, clones of lane 0 that are done from round 0 and
+    whose outputs are discarded, and rank r holds lanes
+    ``[r·block, (r+1)·block)``, ``block = S_pad / world``, on ``device``
+    (with NCCL, this rank's card: ``cuda`` is the current device that
+    ``init_group`` set). Every rank builds every lane's world and draws
+    its own lanes' inits, schedules, assignments and codec noise from
+    per-lane streams, so each lane draws as in the unsharded run; the
+    round's cohort width and the per-round records (accuracy, T_i, E_i)
+    are gathered over the group, and every rank returns the result dict
+    of ``shard=False``.
 
     init_params: S initial weight trees (e.g. the reference's, as numpy);
     otherwise lane s draws its init s-th from one ``torch.Generator``
@@ -350,7 +423,10 @@ class SweepRunner:
     int8 noise source of that lane's round (default
     ``compression.round_noise``; both engines read it by lane seed and
     round, so they draw the same noise). After a ``run`` the final
-    lane-stacked params are ``params_b``.
+    lane-stacked params are ``params_b``: all S lanes, or, sharded, this
+    rank's block (lanes ``self.lanes``, dead ones included); to rebuild
+    the (S, ...) stack on every rank, pass each leaf through
+    ``gather_lanes(leaf, runner.mesh)`` and keep its first S rows.
     """
 
     def __init__(self, sp: cm.SystemParams,
@@ -364,12 +440,34 @@ class SweepRunner:
                  codec_noise: Optional[
                      Callable[[int, int], comp.NoiseSource]] = None,
                  device="cuda"):
-        if shard or mesh is not None:
-            raise NotImplementedError(
-                "SweepRunner(shard=True / mesh=) is not ported yet; see "
-                f"{_SHARD_ITEM}")
         if not worlds:
             raise ValueError("a sweep needs at least one world")
+        self.S = len(worlds)
+        self.mesh = None
+        self.S_pad = block = self.S
+        if shard:
+            if mesh is None:
+                from repro_torch.launch.mesh import sweep_mesh
+                mesh = sweep_mesh(device_type=torch.device(device).type)
+            axes = mesh_axes(mesh)
+            if tuple(axes) != ("lane",):
+                raise ValueError("shard=True needs a 1-D ('lane',) mesh "
+                                 f"(got axes {tuple(axes)})")
+            self.mesh = mesh
+            self.S_pad = pad_lanes(self.S, axes["lane"])
+            block = self.S_pad // axes["lane"]
+        if lane_chunk is not None and block % lane_chunk != 0:
+            raise ValueError(f"lane_chunk={lane_chunk} must divide the lane "
+                             f"block ({block})")
+        lo = 0
+        if shard:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "SweepRunner(shard=True) needs an initialised process "
+                    "group (repro_torch.launch.mesh.init_group)")
+            lo = self.mesh.get_coordinate()[0] * block
+        # this rank's lanes (global indices; >= S are dead clones of lane 0)
+        self.lanes = list(range(lo, lo + block))
         self.device = dev = resolve_device(device)
         self.sp, self.lr, self.alloc_steps = sp, lr, alloc_steps
         self.arch = arch
@@ -380,15 +478,14 @@ class SweepRunner:
                       else comp.CompressionConfig())
         self.pops = [w[0] for w in worlds]
         self.feds = [w[1] for w in worlds]
-        self.S = len(worlds)
         self.M = self.pops[0].n_edges
         self.N = self.feds[0].n_devices
-        if lane_chunk is not None and self.S % lane_chunk != 0:
-            raise ValueError(f"lane_chunk={lane_chunk} must divide the lane "
-                             f"axis ({self.S})")
+        src = [i if i < self.S else 0 for i in self.lanes]
+        pops = [self.pops[i] for i in src]
+        feds = [self.feds[i] for i in src]
 
         Dmax = max(int(max(len(y) for y in fed.y)) for fed in self.feds)
-        padded = [pad_device_data(fed, Dmax, device=dev) for fed in self.feds]
+        padded = [pad_device_data(fed, Dmax, device=dev) for fed in feds]
         self.X_b = torch.stack([t[0] for t in padded])   # (S, N, Dmax, ...)
         self.y_b = torch.stack([t[1] for t in padded])
         self.mask_b = torch.stack([t[2] for t in padded])
@@ -397,26 +494,26 @@ class SweepRunner:
             return torch.stack([torch.as_tensor(np.asarray(a), dtype=dtype)
                                 for a in arrays]).to(dev)
 
-        self.Xt_b = stack([f.X_test for f in self.feds])
-        self.yt_b = stack([f.y_test for f in self.feds], torch.int64)
-        self.fed_sizes_b = stack([f.sizes for f in self.feds], torch.float32)
+        self.Xt_b = stack([f.X_test for f in feds])
+        self.yt_b = stack([f.y_test for f in feds], torch.int64)
+        self.fed_sizes_b = stack([f.sizes for f in feds], torch.float32)
         for name in ("u", "D", "p", "g", "g_cloud", "B_m"):
             setattr(self, f"{name}_b", torch.stack(
-                [getattr(p, name).to(dev) for p in self.pops]))
-        self.dev_pos_b = stack([p.dev_pos for p in self.pops], torch.float32)
-        self.edge_pos_b = stack([p.edge_pos for p in self.pops],
-                                torch.float32)
+                [getattr(p, name).to(dev) for p in pops]))
+        self.dev_pos_b = stack([p.dev_pos for p in pops], torch.float32)
+        self.edge_pos_b = stack([p.edge_pos for p in pops], torch.float32)
 
         if init_params is not None:
             if len(init_params) != self.S:
                 raise ValueError(f"init_params needs {self.S} trees, got "
                                  f"{len(init_params)}")
-            self.params0 = lanes_from_numpy(init_params, dev)
+            self.params0 = lanes_from_numpy([init_params[i] for i in src],
+                                            dev)
         else:
             gen = torch.Generator().manual_seed(model_seed)
             inits = [self.spec.init_fn(gen, self.feds[0], dev)
-                     for _ in range(self.S)]
-            self.params0 = {k: torch.stack([t[k] for t in inits])
+                     for _ in range(max(src) + 1)]
+            self.params0 = {k: torch.stack([inits[i][k] for i in src])
                             for k in inits[0]}
         self.params_b = self.params0
         self.apply_fn = self.spec.apply_fn
@@ -427,6 +524,21 @@ class SweepRunner:
         self.codec_noise = codec_noise or functools.partial(
             comp.round_noise, self.codec, device=dev)
 
+    def _all_lanes(self, a):
+        """Every lane's rows of this rank's lane-major ``a`` (block, ...):
+        gathered over the lane mesh when sharded, else ``a`` itself."""
+        return a if self.mesh is None else gather_lanes(a, self.mesh)
+
+    def _width(self, H: int) -> int:
+        """The round's cohort width: the largest over every rank's lanes."""
+        if self.mesh is None:
+            return H
+        return int(max(gather_lanes(np.array([H]), self.mesh)))
+
+    def _local_seeds(self, seeds) -> List[int]:
+        """The lane seeds of this rank's lanes (dead lanes: lane 0's)."""
+        return [seeds[i] if i < self.S else seeds[0] for i in self.lanes]
+
     def _codec_state0(self):
         """Fresh lane-stacked error-feedback state ``(dev_resid
         (S, N, ...), edge_resid (S, M, ...))`` of zeros; None for the
@@ -434,7 +546,8 @@ class SweepRunner:
         if not self.codec.active:
             return None
         one = {k: v[0] for k, v in self.params0.items()}
-        return tuple({k: torch.zeros((self.S,) + tuple(z.shape), dtype=z.dtype,
+        return tuple({k: torch.zeros((len(self.lanes),) + tuple(z.shape),
+                                     dtype=z.dtype,
                                      device=self.device)
                       for k, z in comp.init_state(self.codec, one, n).items()}
                      for n in (self.N, self.M))
@@ -542,51 +655,63 @@ class SweepRunner:
         sizes_b = self._sizes(sizes)
         if seeds is None:
             seeds = list(range(self.S))
-        rngs = [np.random.default_rng(s) for s in seeds]
+        live = [i for i in self.lanes if i < self.S]
+        rngs = [np.random.default_rng(seeds[i]) for i in live]
         sp = self._round_sp()
         codec_on = self.codec.active
         cstate = self._codec_state0()
-        lane_noise = self._lane_noise(seeds)
+        lane_noise = self._lane_noise(self._local_seeds(seeds))
+        n_live, n_dead = len(live), len(self.lanes) - len(live)
 
         params_b = self.params0
         accs: List[np.ndarray] = []
         Ts: List[np.ndarray] = []
         Es: List[np.ndarray] = []
         H = None
-        done = np.zeros(self.S, bool)
-        scheds = [None] * self.S
-        assigns = [None] * self.S
+        # done over every lane; dead pad lanes (sharding only) are done
+        # from round 0: frozen params, zero costs, outputs sliced away
+        done = np.arange(self.S_pad) >= self.S
+        scheds = [None] * n_live
+        assigns = [None] * n_live
         for r_i in range(n_rounds):
             # done lanes are frozen: reuse their last schedule/assignment
             # instead of spending scheduler rng and assignment search on
             # a lane that no longer trains.
-            scheds = _draw_cohorts(schedulers, rngs, self.N, scheds, done)
-            H = len(scheds[0])
-            assigns = [assigns[s] if done[s]
-                       else np.asarray(assign_fn(self.pops[s], scheds[s],
+            own_done = done[live]
+            scheds, H = _draw_cohorts([schedulers[i] for i in live], rngs,
+                                      self.N, scheds, own_done, self._width)
+            assigns = [assigns[s] if own_done[s]
+                       else np.asarray(assign_fn(self.pops[i], scheds[s],
                                                  rngs[s]))
-                       for s in range(self.S)]
+                       for s, i in enumerate(live)]
+            # dead lanes take any cohort: their round is masked by done
+            pad_s = [np.arange(H) % self.N] * n_dead
+            pad_a = [np.arange(H) % self.M] * n_dead
             ckw = {}
             if codec_on:
                 ckw = dict(codec=self.codec, codec_state_b=cstate,
                            codec_noise_b=[f(r_i) for f in lane_noise])
-            out = sweep_round(
-                self.apply_fn, sp, params_b, self.u_b, self.D_b, self.p_b,
-                self.g_b, self.g_cloud_b, self.B_m_b, self.X_b, self.y_b,
-                self.mask_b, sizes_b, self._tensor(np.stack(scheds)),
-                self._tensor(np.stack(assigns)), self.lr, M=self.M, L=sp.L,
-                Q=sp.Q, alloc_steps=self.alloc_steps, train_only=train_only,
-                agg_kernel=self.agg_kernel, lane_chunk=self.lane_chunk,
-                done_b=self._tensor(done, torch.bool), **ckw)
+            args = (self.apply_fn, sp, params_b, self.u_b, self.D_b,
+                    self.p_b, self.g_b, self.g_cloud_b, self.B_m_b, self.X_b,
+                    self.y_b, self.mask_b, sizes_b,
+                    self._tensor(np.stack(scheds + pad_s)),
+                    self._tensor(np.stack(assigns + pad_a)), self.lr)
+            kw = dict(M=self.M, L=sp.L, Q=sp.Q, alloc_steps=self.alloc_steps,
+                      train_only=train_only, agg_kernel=self.agg_kernel,
+                      lane_chunk=self.lane_chunk,
+                      done_b=self._tensor(done[self.lanes], torch.bool),
+                      **ckw)
+            out = (sweep_round(*args, **kw) if self.mesh is None
+                   else sweep_round_sharded(*args, mesh=self.mesh, **kw))
             params_b, (T_i, E_i) = out[0], out[1]
             if codec_on:
                 cstate = out[2]
-            acc = self._eval(params_b)
-            accs.append(acc)
-            Ts.append(T_i.cpu().numpy())
-            Es.append(E_i.cpu().numpy())
+            acc_full = self._all_lanes(self._eval(params_b))
+            accs.append(acc_full[:self.S])
+            Ts.append(T_i.cpu().numpy()[:self.S])
+            Es.append(E_i.cpu().numpy()[:self.S])
             if target_acc is not None:
-                done = done | (acc >= target_acc)
+                done = done | (acc_full >= target_acc)
                 if done.all():
                     break
         self.params_b = params_b
@@ -647,7 +772,8 @@ class SweepRunner:
                     "fused TracedFedAvg lanes must share one (n_devices, "
                     "H) config — per-lane variation lives in the seed")
             H = traced_sched.H
-            sched_state_b = traced_sched.init_state(seeds, self.device)
+            sched_state_b = traced_sched.init_state(
+                self._local_seeds(seeds), self.device)
             sched_rs = None
         elif n_traced:
             raise ValueError("cannot mix TracedFedAvg and host schedulers "
@@ -655,12 +781,13 @@ class SweepRunner:
         else:
             traced_sched = None
             sched_state_b = None
-            rngs = [np.random.default_rng(s) for s in seeds]
+            live = [i for i in self.lanes if i < self.S]
+            rngs = [np.random.default_rng(seeds[i]) for i in live]
             rounds = []
             H = None
             for _ in range(n_rounds):
-                scheds = _draw_cohorts(schedulers, rngs, self.N)
-                H_r = len(scheds[0])
+                scheds, H_r = _draw_cohorts([schedulers[i] for i in live],
+                                            rngs, self.N, width=self._width)
                 if H is None:
                     H = H_r
                 elif H_r != H:
@@ -669,16 +796,19 @@ class SweepRunner:
                         f"(got H={H} then H={H_r}); use the per-round host "
                         "path for schedulers whose worst-case cohort "
                         "varies across rounds")
-                rounds.append(np.stack(scheds))
+                # dead lanes take any cohort: they are done from round 0
+                pad = [np.arange(H_r) % self.N] * (len(self.lanes) - len(live))
+                rounds.append(np.stack(scheds + pad))
             sched_rs = self._tensor(np.stack(rounds))        # (R, S, H)
 
+        local_seeds = self._local_seeds(seeds)
         assign_words_b = self._tensor(
-            [[assign_seed, s] for s in seeds])               # (S, 2)
-        done_b = torch.zeros((self.S,), dtype=torch.bool, device=self.device)
+            [[assign_seed, s] for s in local_seeds])         # (S, 2)
+        done_b = self._tensor(np.array(self.lanes) >= self.S, torch.bool)
         params_b = self.params0
         drl_t = (params_from_numpy(drl_params, self.device)
                  if assign == "drl" else None)
-        lane_noise = self._lane_noise(seeds) if codec_on else None
+        lane_noise = self._lane_noise(local_seeds) if codec_on else None
         statics = dict(M=self.M, L=sp.L, Q=sp.Q, alloc_steps=self.alloc_steps,
                        train_only=train_only, agg_kernel=self.agg_kernel,
                        lane_chunk=self.lane_chunk, assign=assign,
@@ -686,9 +816,12 @@ class SweepRunner:
                        traced_sched=traced_sched,
                        codec=self.codec if codec_on else None)
 
+        scan = (sweep_scan if self.mesh is None else
+                functools.partial(sweep_scan_sharded, mesh=self.mesh))
+
         def dispatch(params_b, done_b, sched_state_b, sched_rs, cstate, r0,
                      n_r):
-            return sweep_scan(
+            return scan(
                 self.apply_fn, sp, self.sp, params_b, self.u_b, self.D_b,
                 self.p_b, self.g_b, self.g_cloud_b, self.B_m_b, self.X_b,
                 self.y_b, self.mask_b, sizes_b, self.dev_pos_b,
@@ -705,10 +838,11 @@ class SweepRunner:
                     = dispatch(params_b, done_b, sched_state_b, xs_r, cstate,
                                r, 1)
                 n_dispatches += 1
-                accs.append(acc_r[0].cpu().numpy())
-                Ts.append(T_r[0].cpu().numpy())
-                Es.append(E_r[0].cpu().numpy())
-                if target_acc is not None and bool(done_b.all()):
+                accs.append(acc_r[0].cpu().numpy()[:self.S])
+                Ts.append(T_r[0].cpu().numpy()[:self.S])
+                Es.append(E_r[0].cpu().numpy()[:self.S])
+                if target_acc is not None and self._all_lanes(
+                        done_b.cpu().numpy()).all():
                     break
             acc_a = np.stack(accs, axis=1)               # (S, R_run)
             T_a = np.stack(Ts, axis=1)
@@ -718,9 +852,9 @@ class SweepRunner:
                 params_b, done_b, sched_state_b, sched_rs, cstate, 0,
                 n_rounds)
             n_dispatches = 1
-            acc_a = acc_rs.cpu().numpy().T               # (S, R)
-            T_a = T_rs.cpu().numpy().T
-            E_a = E_rs.cpu().numpy().T
+            acc_a = acc_rs.cpu().numpy().T[:self.S]      # (S, R)
+            T_a = T_rs.cpu().numpy().T[:self.S]
+            E_a = E_rs.cpu().numpy().T[:self.S]
             if target_acc is not None:
                 # trim trailing all-done rounds so the fused result is
                 # row-for-row comparable with the early-breaking host loop

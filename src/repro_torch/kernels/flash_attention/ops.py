@@ -23,6 +23,7 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import build
 
@@ -174,7 +175,14 @@ flash_attention_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """(B, S, Hq, d) attention output in q's dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (or raise)."""
+    plain version; CUDA tensors launch the kernel (or raise). DTensors
+    raise: the kernel sees local tensors only, so a mesh-sharded caller
+    runs it per rank through ``local_map``
+    (``repro_torch.models.attention._per_rank``)."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors; run it on "
+                        "DTensors through torch.distributed.tensor."
+                        "experimental.local_map")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, window)
     return flash_attention_cuda(q, k, v, causal, window)

@@ -16,6 +16,16 @@ Checkpoints go through ``repro_torch.checkpoint`` every ``--ckpt-every``
 steps and at the end; a run whose ``--ckpt-dir`` holds one resumes from
 its latest step with those params and a fresh optimizer state, as the
 reference does.
+
+``--production-mesh`` (the reference's flag) runs under ``torchrun``
+over 256 ranks (``launch.mesh.init_group``, each rank on
+``cuda:{LOCAL_RANK}``) with ``make_production_mesh()`` and the
+mesh-sharded step: weights drawn whole on every rank (as the reference
+draws them) and each rank keeping its block, the batch split over
+``data``, checkpoints gathered and written by rank 0, rank 0 printing.
+Without it the CLI runs on one device, as the reference does on its
+one-device debug mesh. With fewer ranks, call ``launch.steps`` with a
+mesh of your own.
 """
 from __future__ import annotations
 
@@ -31,7 +41,9 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.data.pipeline import token_batch_iterator
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import init_group, make_production_mesh
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as shd
 from repro_torch.utils import resolve_device, tree_leaves
 
 
@@ -50,28 +62,46 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="under torchrun over 256 ranks: the sharded step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.production_mesh:
+        device = init_group(torch.device(args.device).type)
+        mesh = make_production_mesh(device_type=device.type)
+    else:
+        device = resolve_device(args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.microbatches:
         cfg = dataclasses.replace(cfg, microbatches=args.microbatches)
     n_params = sum(x.numel() for x in tree_leaves(S.params_struct(cfg)))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={device}",
-          flush=True)
+    where = device if mesh is None else dict(zip(mesh.mesh_dim_names,
+                                                 mesh.shape))
+    say(f"arch={cfg.name} params={n_params / 1e6:.1f}M device={where}",
+        flush=True)
 
-    step_fn, opt = S.make_train_step(cfg, lr=args.lr)
+    step_fn, opt = S.make_train_step(cfg, mesh=mesh, lr=args.lr)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init(gen, cfg, device=device)
-    opt_state = opt.init(params)
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         start = latest_step(args.ckpt_dir)
         params = params_from_numpy(restore_pytree(params, args.ckpt_dir),
                                    device)
-        print(f"restored step {start}", flush=True)
+        say(f"restored step {start}", flush=True)
+    if mesh is not None:
+        params = S.shard_tree(params, shd.param_shardings(params, cfg, mesh))
+    opt_state = opt.init(params)
+
+    def save(step):
+        whole = params if mesh is None else S.full_tree(params)
+        if lead:
+            save_pytree(whole, args.ckpt_dir, step)
 
     it = token_batch_iterator(cfg.vocab_size, args.batch, args.seq,
                               seed=args.seed)
@@ -90,19 +120,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             for k in ("tokens", "labels"):
                 batch[k] = batch[k][..., None].expand(
                     batch[k].shape + (cfg.n_codebooks,))
+        if mesh is not None:
+            batch = S.shard_tree(batch, S.input_shardings(batch, mesh))
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         tokens_seen += args.batch * args.seq
         if i % args.log_every == 0:
             loss = float(metrics["loss"])
             tps = tokens_seen / (time.time() - t0)
             log.append((i, loss, tps))
-            print(f"step {i:5d} loss={loss:.4f} tok/s={tps:,.0f}",
-                  flush=True)
+            say(f"step {i:5d} loss={loss:.4f} tok/s={tps:,.0f}", flush=True)
         if args.ckpt_dir and i % args.ckpt_every == 0:
-            save_pytree(params, args.ckpt_dir, i)
+            save(i)
     if args.ckpt_dir:
-        save_pytree(params, args.ckpt_dir, args.steps)
-    print("done", flush=True)
+        save(args.steps)
+    say("done", flush=True)
     return {"params": params, "log": log}
 
 

@@ -10,6 +10,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.utils import Params, resolve_device
 
@@ -51,6 +52,45 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
 def embed_init(generator: torch.Generator, vocab: int, d_model: int,
                device="cuda", dtype=torch.float32) -> torch.Tensor:
     return _normal(generator, (vocab, d_model), 0.02, device, dtype)
+
+
+def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n·d) -> (..., n, d). A DTensor whose last dimension is split
+    over a mesh dimension that does not divide n is first made whole
+    along that mesh dimension: DTensor cannot unflatten an uneven split
+    (its propagation may split a projection's output however it likes,
+    e.g. 3 KV heads over 2 ranks)."""
+    if isinstance(t, DTensor):
+        pls = [Replicate() if p.is_shard(t.ndim - 1)
+               and n % t.device_mesh.size(i) else p
+               for i, p in enumerate(t.placements)]
+        if pls != list(t.placements):
+            t = t.redistribute(t.device_mesh, pls)
+    return t.reshape(*t.shape[:-1], n, d)
+
+
+def rows_local(fn, rows, table, whole: bool):
+    """``fn(rows, table)`` on each rank's local block through
+    ``local_map``, for what DTensor's propagation mishandles (a lookup in
+    a table split over its vocabulary, index backwards on batch-split
+    rows; torch 2.11 and 2.13 differ in which): ``rows`` keeps its split
+    of the batch (dim 0) and the output is split as ``rows``. ``table``
+    is taken whole on every rank
+    (``whole``: gathered, as FSDP gathers a weight at use; its gradient
+    comes back partial over the mesh dimensions that split the rows) or
+    split as ``rows`` (a per-row table: logits)."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = rows.device_mesh
+    split = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in rows.placements]
+    tab = [Replicate()] * mesh.ndim if whole else split
+    grad = [Partial() if p.is_shard() else p for p in split] if whole \
+        else split
+    return local_map(fn, out_placements=split, in_placements=(split, tab),
+                     in_grad_placements=(split, grad), device_mesh=mesh,
+                     redistribute_inputs=True)(rows, table)
 
 
 # ---------------------------------------------------------------- RMSNorm

@@ -32,10 +32,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (_normal, causal_conv1d, dense_init,
-                                       rmsnorm, rmsnorm_init)
+                                       rmsnorm, rmsnorm_init, split_heads)
+from repro_torch.parallel.sharder import NOOP, Sharder
 from repro_torch.utils import Params, resolve_device
 
 
@@ -107,9 +109,11 @@ def ssd_reference(x, dt, A, B_, C_) -> torch.Tensor:
     return torch.stack(ys, dim=1)
 
 
-def ssd_chunked(x, dt, A, B_, C_, chunk: int) -> torch.Tensor:
+def ssd_chunked(x, dt, A, B_, C_, chunk: int,
+                sharder: Sharder = NOOP) -> torch.Tensor:
     """Blocked SSD. Returns (B, S, H, P) in f32; S must be a multiple of
-    ``chunk``."""
+    ``chunk``. Under a mesh every chunked intermediate is placed by its
+    ``ssm_chunk_*`` rule (heads over ``model``), as in the reference."""
     Bsz, S, H, P = x.shape
     N = B_.shape[3]
     if S % chunk:
@@ -117,21 +121,26 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int) -> torch.Tensor:
                          f"SSD chunk {chunk}")
     nc, cs = S // chunk, chunk
     f32 = torch.float32
-    xr = x.reshape(Bsz, nc, cs, H, P).to(f32)
+    xr = sharder.act(x.reshape(Bsz, nc, cs, H, P).to(f32), "ssm_chunk_x")
     dtr = dt.reshape(Bsz, nc, cs, H).to(f32)
     Br = _heads(B_, H, 2).reshape(Bsz, nc, cs, H, N).to(f32)
     Cr = _heads(C_, H, 2).reshape(Bsz, nc, cs, H, N).to(f32)
+    Br = sharder.act(Br, "ssm_chunk_bc")
+    Cr = sharder.act(Cr, "ssm_chunk_bc")
 
     cum = torch.cumsum(dtr * A, dim=2)              # inclusive log-decay
+    cum = sharder.act(cum, "ssm_chunk_cum")
     xdt = xr * dtr[..., None]
 
     # ---- intra-chunk (quadratic within a chunk): i attends to j <= i
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,i,j,H)
     li = torch.arange(cs, device=x.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
-    L = torch.exp(torch.where(causal, diff, float("-inf")))
+    L = sharder.act(torch.exp(torch.where(causal, diff, float("-inf"))),
+                    "ssm_chunk_ij")
     del diff
     scores = torch.einsum("bcihn,bcjhn->bcijh", Cr, Br) * L
+    scores = sharder.act(scores, "ssm_chunk_ij")
     del L
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt)
     del scores
@@ -153,6 +162,81 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int) -> torch.Tensor:
     y_inter = torch.einsum("bcih,bcihn,bchpn->bcihp", torch.exp(cum), Cr,
                            prev_states)
     return (y_intra + y_inter).reshape(Bsz, S, H, P)
+
+
+def _head_block(x, hdim: int):
+    """For DTensor x split over batch rows (dim 0) and heads (dim hdim):
+    (x's placements keeping those two splits, the first head of this
+    rank's block, the placements of the rows' split alone)."""
+    mesh = x.device_mesh
+    pl = tuple(p if p.is_shard(0) or p.is_shard(hdim) else Replicate()
+               for p in x.placements)
+    coord, h0, n = mesh.get_coordinate(), 0, x.shape[hdim]
+    for i, p in enumerate(pl):
+        if p.is_shard(hdim):
+            n //= mesh.size(i)
+            h0 += coord[i] * n
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
+    return pl, h0, rows
+
+
+def _ssd_local(x, dt, A, B_, C_, chunk: int):
+    """``ssd_chunked`` of DTensor inputs on each rank's local (batch rows,
+    heads) block, through ``local_map``: the SSD is independent per batch
+    row and head, and that block is the layout every ``ssm_chunk_*``
+    rule names (batch over the batch axes, heads over ``model``). x's
+    placements (``ssm_heads``) set the blocks: dt takes x's, A and the
+    B_/C_ groups are taken whole (rows split as x's) and each rank picks
+    the heads' entries and groups of its block. Their gradients come back
+    partial over the mesh dimensions that split the block. (DTensor's own
+    propagation of the SSD's einsums fails in the backward, at a view of
+    a strided local block.)"""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    x_pl, h0, rows = _head_block(x, 2)
+    H, G = x.shape[2], B_.shape[2]
+    whole = [Replicate()] * mesh.ndim
+    split = [Partial() if p.is_shard() else Replicate() for p in x_pl]
+    bc_grad = [Shard(0) if p.is_shard(0) else Partial() if p.is_shard()
+               else Replicate() for p in x_pl]
+
+    def local(xl, dtl, Al, Bl, Cl):
+        heads = torch.arange(h0, h0 + xl.shape[2], device=xl.device)
+        grp = heads // (H // G)
+        return ssd_chunked(xl, dtl, Al[heads], Bl[:, :, grp], Cl[:, :, grp],
+                           chunk)
+
+    return local_map(local, out_placements=list(x_pl),
+                     in_placements=(x_pl, x_pl, whole, rows, rows),
+                     in_grad_placements=(x_pl, x_pl, split, bc_grad,
+                                         bc_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, dt, A, B_, C_)
+
+
+def _ssd_step_local(state, x, dt, A, B_, C_):
+    """``ssd_recurrent_step`` of DTensor inputs on each rank's (batch
+    rows, heads) block of the state (``cache_specs``: heads over
+    ``model``), through ``local_map``, as :func:`_ssd_local` (a decode
+    step: no gradient)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = state.device_mesh
+    st_pl, h0, rows = _head_block(state, 1)
+    H, G = state.shape[1], B_.shape[1]
+
+    def local(sl, xl, dtl, Al, Bl, Cl):
+        heads = torch.arange(h0, h0 + sl.shape[1], device=sl.device)
+        grp = heads // (H // G)
+        return ssd_recurrent_step(sl, xl, dtl, Al[heads], Bl[:, grp],
+                                  Cl[:, grp])
+
+    return local_map(local, out_placements=(list(st_pl), list(st_pl)),
+                     in_placements=(st_pl, st_pl, st_pl,
+                                    [Replicate()] * mesh.ndim, rows, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        state, x, dt, A, B_, C_)
 
 
 def ssd_recurrent_step(state, x, dt, A, B_, C_):
@@ -192,8 +276,8 @@ def _gate_out(params: Params, y: torch.Tensor, z: torch.Tensor
     return y @ params["out_proj"].to(y.dtype)
 
 
-def mamba2_forward(params: Params, hidden: torch.Tensor, cfg: ModelConfig
-                   ) -> torch.Tensor:
+def mamba2_forward(params: Params, hidden: torch.Tensor, cfg: ModelConfig,
+                   *, sharder: Sharder = NOOP) -> torch.Tensor:
     """Full-sequence forward. hidden: (B, S, D)."""
     s = cfg.ssm
     B, S, D = hidden.shape
@@ -202,18 +286,23 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, cfg: ModelConfig
     x, _ = causal_conv1d(F.silu(x), params["conv_x"].to(x.dtype))
     B_, _ = causal_conv1d(F.silu(B_), params["conv_b"].to(x.dtype))
     C_, _ = causal_conv1d(F.silu(C_), params["conv_c"].to(x.dtype))
-    x = x.reshape(B, S, nh, s.head_dim)
-    B_ = B_.reshape(B, S, s.n_groups, s.d_state)
-    C_ = C_.reshape(B, S, s.n_groups, s.d_state)
+    x = sharder.act(split_heads(x, nh, s.head_dim), "ssm_heads")
+    B_ = split_heads(B_, s.n_groups, s.d_state)
+    C_ = split_heads(C_, s.n_groups, s.d_state)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y = ssd_chunked(x, dt, A, B_, C_, min(s.chunk, S))
+    if isinstance(x, DTensor):
+        y = _ssd_local(x, dt, A, B_, C_, min(s.chunk, S))
+    else:
+        y = ssd_chunked(x, dt, A, B_, C_, min(s.chunk, S), sharder)
     y = y + params["D_skip"][None, None, :, None] * x.float()
-    return _gate_out(params, y.reshape(B, S, di).to(hidden.dtype), z)
+    out = _gate_out(params, y.reshape(B, S, di).to(hidden.dtype), z)
+    return sharder.act(out, "act_resid")
 
 
 def mamba2_decode(params: Params, hidden: torch.Tensor, cache: Params,
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                  cfg: ModelConfig, *, sharder: Sharder = NOOP
+                  ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. hidden: (B, 1, D); returns (out, new cache)."""
     s = cfg.ssm
     B, _, D = hidden.shape
@@ -225,12 +314,14 @@ def mamba2_decode(params: Params, hidden: torch.Tensor, cache: Params,
     B_, st_b = causal_conv1d(F.silu(B_), params["conv_b"].to(x.dtype), st_b)
     C_, st_c = causal_conv1d(F.silu(C_), params["conv_c"].to(x.dtype), st_c)
     conv_state = torch.cat([st_x, st_b, st_c], dim=-1)
-    x = x[:, 0].reshape(B, nh, s.head_dim)
-    B_ = B_.reshape(B, s.n_groups, s.d_state)
-    C_ = C_.reshape(B, s.n_groups, s.d_state)
+    x = split_heads(x[:, 0], nh, s.head_dim)
+    B_ = split_heads(B_[:, 0], s.n_groups, s.d_state)
+    C_ = split_heads(C_[:, 0], s.n_groups, s.d_state)
     dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    state, y = ssd_recurrent_step(cache["ssm"], x.float(), dt1, A, B_, C_)
+    step = (_ssd_step_local if isinstance(cache["ssm"], DTensor)
+            else ssd_recurrent_step)
+    state, y = step(cache["ssm"], x.float(), dt1, A, B_, C_)
     y = y + params["D_skip"][None, :, None] * x.float()
     out = _gate_out(params, y.reshape(B, 1, di).to(hidden.dtype), z)
-    return out, {"ssm": state, "conv": conv_state}
+    return sharder.act(out, "act_resid"), {"ssm": state, "conv": conv_state}

@@ -26,12 +26,18 @@ decoders from one code path).
   attention position of the super-block and an SSM cache (SSD state and
   rolling conv state) for each SSM position.
 
+* ``sharder`` (``NOOP`` by default) takes the reference's activation
+  kinds at the reference's points (``act_resid`` after the embedding
+  and each layer, ``logits``, ``act_resid_decode``); under a mesh the
+  params and batch are DTensors and a ``MeshSharder`` places them
+  (``repro_torch.launch.steps``).
+
 API:
-  init(generator, cfg, device)             -> params
-  forward(params, batch, cfg, impl=)       -> (logits, aux_loss)
-  loss_fn(params, batch, cfg, impl=)       -> (scalar, metrics)
-  init_cache(cfg, batch, max_len, device)  -> decode cache
-  decode(params, tokens, cache, pos, cfg)  -> (logits, cache)
+  init(generator, cfg, device)                      -> params
+  forward(params, batch, cfg, sharder=, impl=)      -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, sharder=, impl=)      -> (scalar, metrics)
+  init_cache(cfg, batch, max_len, device)           -> decode cache
+  decode(params, tokens, cache, pos, cfg, sharder=) -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -46,7 +54,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init)
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       rows_local)
+from repro_torch.parallel.sharder import NOOP, Sharder
 from repro_torch.utils import resolve_device
 
 
@@ -117,12 +127,18 @@ def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
     """tokens (B, S), or (B, S, K) for audio -> (B, S, D) in the compute
     dtype."""
     emb = params["embed"]
+
+    def lookup(idx, table):
+        if isinstance(table, DTensor):
+            return rows_local(F.embedding, idx, table, whole=True)
+        return F.embedding(idx, table)
+
     if cfg.family == "audio" and cfg.n_codebooks > 1:
         offs = torch.arange(cfg.n_codebooks, device=tokens.device) \
             * cfg.vocab_size
-        x = emb[tokens.long() + offs].sum(dim=2)
+        x = lookup(tokens.long() + offs, emb).sum(dim=2)
     else:
-        x = emb[tokens.long()]
+        x = lookup(tokens.long(), emb)
     return x.to(cfg.compute_dtype)
 
 
@@ -137,7 +153,8 @@ def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 # --------------------------------------------------------------- forward
 
-def _mlp_sublayer(p, x: torch.Tensor, cfg: ModelConfig, idx: int
+def _mlp_sublayer(p, x: torch.Tensor, cfg: ModelConfig, idx: int,
+                  sharder: Sharder = NOOP
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The channel-mixing sublayer with its residual -> (x, the MoE aux
     loss or None)."""
@@ -146,24 +163,27 @@ def _mlp_sublayer(p, x: torch.Tensor, cfg: ModelConfig, idx: int
         return x, None
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if kind == "moe":
-        h, aux = moe_lib.moe_apply(p["mlp"], h, cfg)
+        h, aux = moe_lib.moe_apply(p["mlp"], h, cfg, sharder=sharder)
         return x + h, aux
     return x + mlp_apply({k: w.to(h.dtype) for k, w in p["mlp"].items()},
                          h), None
 
 
-def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, idx: int, impl: str
+def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, idx: int, impl: str,
+                 sharder: Sharder = NOOP
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.layer_kind(idx) == "attn":
-        h = attn.attn_forward(p["mix"], h, cfg, impl=impl)
+        h = attn.attn_forward(p["mix"], h, cfg, sharder=sharder, impl=impl)
     else:
-        h = m2.mamba2_forward(p["mix"], h, cfg)
-    return _mlp_sublayer(p, x + h, cfg, idx)
+        h = m2.mamba2_forward(p["mix"], h, cfg, sharder=sharder)
+    x, aux = _mlp_sublayer(p, x + h, cfg, idx, sharder)
+    return sharder.act(x, "act_resid"), aux
 
 
 def backbone(params, x: torch.Tensor, cfg: ModelConfig, *,
-             impl: str = "plain") -> Tuple[torch.Tensor, torch.Tensor]:
+             sharder: Sharder = NOOP, impl: str = "plain"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) embedded input -> (hidden, the MoE layers' summed aux
     loss; zero without MoE layers). Super-blocks are rematerialised
     under ``cfg.remat`` when grad mode is on. ``torch.func``'s ``grad``
@@ -173,7 +193,8 @@ def backbone(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     def block(b, x, aux):
         for j in range(sb):
-            x, a = _apply_layer(_at(params["blocks"][j], b), x, cfg, j, impl)
+            x, a = _apply_layer(_at(params["blocks"][j], b), x, cfg, j, impl,
+                                sharder)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -189,7 +210,8 @@ def backbone(params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            impl: str = "plain") -> Tuple[torch.Tensor, torch.Tensor]:
+            sharder: Sharder = NOOP, impl: str = "plain"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train/prefill forward. batch: tokens (+ prefix_embeds for vlm).
     Returns (logits over the token positions, aux loss)."""
     x = _embed_tokens(params, batch["tokens"], cfg)
@@ -198,21 +220,34 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         pre = batch["prefix_embeds"].to(x.dtype)
         n_prefix = pre.shape[1]
         x = torch.cat([pre, x], dim=1)
-    x, aux = backbone(params, x, cfg, impl=impl)
+    x = sharder.act(x, "act_resid")
+    x, aux = backbone(params, x, cfg, sharder=sharder, impl=impl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if n_prefix > 0:
         x = x[:, n_prefix:]
-    return _lm_head(params, x, cfg), aux
+    return sharder.act(_lm_head(params, x, cfg), "logits"), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, impl: str = "plain"):
+def _token_nll(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's next-token NLL: logsumexp minus the gold logit."""
+    lse = torch.logsumexp(lf, dim=-1)
+    return lse - torch.gather(lf, -1, labels[..., None])[..., 0]
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, sharder: Sharder = NOOP,
+            impl: str = "plain"):
     """Mean next-token NLL over ``batch["labels"]``, plus
     ``router_aux_weight · aux`` for MoE configs."""
-    logits, aux = forward(params, batch, cfg, impl=impl)
+    logits, aux = forward(params, batch, cfg, sharder=sharder, impl=impl)
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
-    nll = (lse - gold).mean()
+    labels = batch["labels"].long()
+    if isinstance(lf, DTensor):
+        # per rank, on its rows with the vocabulary whole
+        nll = rows_local(lambda y, lf: _token_nll(lf, y), labels, lf,
+                          whole=False)
+    else:
+        nll = _token_nll(lf, labels)
+    nll = nll.mean()
     total = nll
     if cfg.is_moe:
         total = total + cfg.moe.router_aux_weight * aux
@@ -236,11 +271,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             for j in range(sb)]
 
 
-def decode(params, tokens: torch.Tensor, cache, pos: int, cfg: ModelConfig):
+def decode(params, tokens: torch.Tensor, cache, pos: int, cfg: ModelConfig,
+           *, sharder: Sharder = NOOP):
     """One decode step. tokens (B, 1) or (B, 1, K); pos: the position of
     these tokens (int). The cache is updated in place and returned. An
     MoE layer fills its capacity from the B tokens of this step alone."""
-    x = _embed_tokens(params, tokens, cfg)
+    x = sharder.act(_embed_tokens(params, tokens, cfg), "act_resid_decode")
     sb = super_block(cfg)
     for b in range(cfg.n_layers // sb):
         for j in range(sb):
@@ -248,11 +284,13 @@ def decode(params, tokens: torch.Tensor, cache, pos: int, cfg: ModelConfig):
             c = _at(cache[j], b)
             hn = rmsnorm(p["norm1"], x, cfg.norm_eps)
             if cfg.layer_kind(j) == "attn":
-                hn, _ = attn.attn_decode(p["mix"], hn, c, pos, cfg)
+                hn, _ = attn.attn_decode(p["mix"], hn, c, pos, cfg,
+                                         sharder=sharder)
             else:
-                hn, new = m2.mamba2_decode(p["mix"], hn, c, cfg)
+                hn, new = m2.mamba2_decode(p["mix"], hn, c, cfg,
+                                           sharder=sharder)
                 for k, v in new.items():
                     c[k].copy_(v)
-            x, _ = _mlp_sublayer(p, x + hn, cfg, j)
+            x, _ = _mlp_sublayer(p, x + hn, cfg, j, sharder)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, x, cfg), cache

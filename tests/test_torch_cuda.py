@@ -23,7 +23,9 @@ The sweep: one lane-batched hop (4 lanes x the CNN's 4 leaves) against
 the plain version at the 1e-5 above; ``TracedFedAvg`` and the traced
 geo assignment equal to their CPU results (integer hashing and the same
 f32 distances); a 2-round fused geo sweep whose device window raises on
-any host synchronisation, equal to the per-round oracle.
+any host synchronisation, equal to the per-round oracle; on a one-rank
+NCCL group, ``SweepRunner(shard=True)`` (host loop and fused) and the
+mesh train step and kernel prefill equal to their unsharded runs.
 
 The async engine (no kernel of its own): an always-on round on the
 card against the same round on the CPU from the same weights (records
@@ -638,6 +640,94 @@ def test_fused_sweep_runs_without_host_sync(cuda, monkeypatch):
     for k in ("acc", "T_i", "E_i", "iters"):
         np.testing.assert_array_equal(fused[k], oracle[k], err_msg=k)
     assert np.isfinite(fused["acc"]).all() and (fused["T_i"] > 0).all()
+
+
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """A one-rank NCCL group (file store under tmp_path), destroyed after
+    the test."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/group",
+                            rank=0, world_size=1)
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_lane_sharded_sweep_on_one_rank_matches_unsharded(nccl_rank):
+    """``SweepRunner(shard=True)`` on a one-rank NCCL ``sweep_mesh()``:
+    host loop and fused, records and params equal to ``shard=False``
+    (one rank runs the same ops on the same lanes)."""
+    from repro_torch.core import sweep as tsw
+    from repro_torch.data import make_dataset, partition_noniid
+    from repro_torch.launch.mesh import sweep_mesh
+    sp = tcm.SystemParams(n_devices=12, n_edges=3, L=2, Q=2)
+    X, y, Xt, yt = make_dataset("fmnist_syn", n_train=240, n_test=60,
+                                seed=0)
+    worlds = [(tcm.sample_population(sp, seed=s, device=nccl_rank),
+               partition_noniid(X, y, Xt, yt, n_devices=12,
+                                size_range=(10, 16), seed=s))
+              for s in range(3)]
+    kw = dict(lr=0.02, alloc_steps=30, agg_kernel=True, device=nccl_rank)
+    mesh = sweep_mesh()
+    for fused in (False, True):
+        runs = []
+        for shard in (False, True):
+            runner = tsw.SweepRunner(sp, worlds, shard=shard,
+                                     mesh=mesh if shard else None, **kw)
+            scheds = [tsw.build_scheduler("fedavg", w[1], sp, 6, seed=s,
+                                          device=nccl_rank)
+                      for s, w in enumerate(worlds)]
+            runs.append((runner.run(scheds, 2, fused=fused),
+                         runner.params_b))
+        (one, p1), (sharded, p2) = runs
+        for k in ("acc", "T_i", "E_i", "iters"):
+            np.testing.assert_array_equal(sharded[k], one[k], err_msg=k)
+        for k in p1:
+            assert torch.equal(p1[k], p2[k]), k
+
+
+@pytest.mark.cuda
+def test_mesh_steps_on_one_rank_match_unsharded(nccl_rank):
+    """``make_train_step`` and the kernel prefill (K5 through
+    ``local_map``) on a one-rank NCCL ``make_debug_mesh()`` against the
+    unsharded steps, chatglm3's smoke config in f32: equal (every
+    placement is ``Replicate()`` on one rank)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as shd
+    import dataclasses
+    mesh = make_debug_mesh()
+    cfg = dataclasses.replace(get_smoke_config("chatglm3-6b"),
+                              microbatches=2)
+    params = T.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                    device=nccl_rank)
+    tok = torch.randint(0, cfg.vocab_size, (4, 32), device=nccl_rank,
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1))
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    step, opt = S.make_train_step(cfg, lr=1e-3)
+    p1, _, m1 = step(params, opt.init(params), batch)
+    mstep, mopt = S.make_train_step(cfg, mesh=mesh, lr=1e-3)
+    dp = S.shard_tree(params, shd.param_shardings(params, cfg, mesh))
+    p2, _, m2 = mstep(dp, mopt.init(dp), S.shard_tree(
+        batch, S.input_shardings(batch, mesh)))
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        assert torch.equal(a, b.full_tensor())
+    with torch.no_grad():
+        n0 = fa.flash_attention_cuda.launches
+        want = S.make_prefill_step(cfg, "kernel")(params, {"tokens": tok})
+        got = S.make_prefill_step(cfg, "kernel", mesh=mesh)(
+            dp, S.shard_tree({"tokens": tok}, S.input_shardings(
+                {"tokens": tok}, mesh)))
+        assert fa.flash_attention_cuda.launches == n0 + 2 * cfg.n_layers
+    assert torch.equal(want, got.full_tensor())
 
 
 # ------------------------------------------------------- the async engine

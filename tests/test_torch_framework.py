@@ -213,8 +213,9 @@ assert {"repro_torch.core.sweep", "repro_torch.core.assignment.hfel",
         "repro_torch.core.scheduling.schedulers",
         "repro_torch.core.async_engine", "repro_torch.core.traffic",
         "repro_torch.checkpoint.ckpt", "repro_torch.launch.serve",
-        "repro_torch.data.pipeline", "repro_torch.launch.train"
-        } <= set(names), names
+        "repro_torch.data.pipeline", "repro_torch.launch.train",
+        "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
+        "repro_torch.parallel.sharder"} <= set(names), names
 import repro_torch.core.sweep as sweep
 assert sweep.SweepRunner is repro_torch.SweepRunner
 import repro_torch.core.async_engine as ae

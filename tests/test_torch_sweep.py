@@ -258,7 +258,8 @@ def test_run_validates():
         tr.run(_scheds(tsw, tr), 1, assign="nearest")
     with pytest.raises(ValueError, match="drl_params"):
         tr.run(_scheds(tsw, tr), 1, assign="drl")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # shard=True needs an initialised process group (here there is none)
+    with pytest.raises(RuntimeError, match="process group"):
         tsw.SweepRunner(tr.sp, list(zip(tr.pops, tr.feds)), shard=True,
                         device="cpu")
     with pytest.raises(ValueError, match="lane_chunk"):

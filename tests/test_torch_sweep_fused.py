@@ -44,6 +44,7 @@ from repro_torch.core.assignment import drl as tdrl
 from repro_torch.core.assignment import geo as tgeo
 from repro_torch.core.assignment import hfel as thfel
 from repro_torch.core.scheduling.schedulers import TracedFedAvg
+from repro_torch.parallel.sharding import AbstractMesh
 from test_torch_framework import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_sweep import H, KW, M, N, S, _drl_params, _worlds
 
@@ -305,6 +306,15 @@ def test_fused_rejects_bad_configs(runner):
     with pytest.raises(ValueError, match="share one"):
         runner.run([TracedFedAvg(N, H), TracedFedAvg(N, H - 1)], 1,
                    fused=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsw.SweepRunner(runner.sp, list(zip(runner.pops, runner.feds)),
-                        mesh=object(), device="cpu")
+    # the reference's mesh validation: a mesh that is not ("lane",) is
+    # refused, and lane_chunk must divide the per-rank lane block (3
+    # lanes over 2 ranks: blocks of 2), both before any process group is
+    # needed
+    worlds = list(zip(runner.pops, runner.feds))
+    with pytest.raises(ValueError, match="lane"):
+        tsw.SweepRunner(runner.sp, worlds, shard=True, device="cpu",
+                        mesh=AbstractMesh({"data": 1, "model": 1}))
+    with pytest.raises(ValueError, match="lane_chunk"):
+        tsw.SweepRunner(runner.sp, worlds + worlds[:1], shard=True,
+                        device="cpu", mesh=AbstractMesh({"lane": 2}),
+                        lane_chunk=3)
