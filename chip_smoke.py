@@ -108,13 +108,15 @@ drawn on the card from a seed, bf16 compute):
    prefill's shape (B=2, S=4096, 32 q heads, 2 KV heads, d=128, bf16)
    and at edge cases (ragged S, windows, head dims 16/48/80, MHA, f32,
    a layout that TMA cannot read, a 16 384-token sequence), each on the
-   kernel its layout selects (wgmma, mma or fma: checked), timed at the
-   prefill's shape against the bound, the kernel's own floor (1.5x the
-   bound: P V runs twice, P's bf16 head and remainder), the plain version
-   and PyTorch's SDPA; the f32 (fma) path timed the same way at the
-   prefill's shape on f32 inputs (FA_F32; its bound at the f32 rate).
+   kernel its layout selects (wgmma, mma or tf32x3: checked), timed at
+   the prefill's shape against the bound, the kernel's own floor (1.5x
+   the bound: P V runs twice, P's bf16 head and remainder), the plain
+   version and PyTorch's SDPA; the mma path timed the same way at the
+   prefill's shape with v's base one element off (FA_MMA), and the f32
+   (tf32x3) path on f32 inputs (FA_F32; its bound three TF32 products a
+   pair at the TF32 rate, the f32 FMA rate's figure printed beside it).
 9. A': two layers at full width in f32: the prefill through the kernel
-   (2 launches, fma) against the plain prefill within LM_F32_TOL of the
+   (2 launches, tf32x3) against the plain prefill within LM_F32_TOL of the
    largest logit, and the serving loop's teacher-forced decode logits
    against the kernel prefill of the same prompt, within the same.
 10. A: all 28 layers, bf16: the prefill through the kernel (28
@@ -181,7 +183,7 @@ drawn on the card from a seed, bf16 compute):
       printed; one profiled prefill.
    c. jamba at its smoke config (attention + SSM + MoE; its full width
       needs four cards): kernel vs plain prefill in f32 (2 K5 launches,
-      fma) and in bf16 (wgmma, routing replayed), and the f32 decode
+      tf32x3) and in bf16 (wgmma, routing replayed), and the f32 decode
       with KV and SSM caches side by side against the prefill.
 15. LM training (``launch.steps.make_train_step`` and
    ``make_hfl_train_step``, ``launch.train``), no kernel (the plain
@@ -285,6 +287,7 @@ FLIP_ATOL, FLIP_SHARE = 1e-5, 5e-2
 UPDATE_LOSS_RTOL, UPDATE_ATOL = 1e-4, 1e-5
 F32_FLOPS = 67e12       # H100/H200 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12     # H100/H200 SXM bf16 tensor-core rate, dense
+TF32_FLOPS = 495e12     # H100/H200 SXM TF32 tensor-core rate, dense
 # flash attention vs its plain version: f32 to 2e-5 (the reference's own
 # kernel-vs-oracle figure: the kernel scales q before the dot, the plain
 # version divides the scores); bf16: both compute in f32 from the same
@@ -294,7 +297,10 @@ BF16_FLOPS = 989e12     # H100/H200 SXM bf16 tensor-core rate, dense
 # outputs near zero
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
 FA_MAIN = ("prefill", 2, 4096, 32, 2, 128, 0, "bfloat16")
-# the f32 FMA path timed at the prefill's shape, on f32 inputs
+# the mma.sync path timed at the prefill's shape: v's base one bf16
+# element past an alignment, so TMA cannot read it
+FA_MMA = ("mma prefill",) + FA_MAIN[1:]
+# the f32 (split-TF32) path timed at the prefill's shape, on f32 inputs
 FA_F32 = ("f32 prefill", 2, 4096, 32, 2, 128, 0, "float32")
 FA_CASES = (FA_MAIN,
             ("ragged S", 1, 200, 4, 2, 64, 0, "bfloat16"),
@@ -307,9 +313,14 @@ FA_CASES = (FA_MAIN,
             ("f32 S=1024", 1, 1024, 32, 2, 128, 0, "float32"),
             ("f32 window 96", 1, 256, 8, 2, 64, 96, "float32"),
             ("f32 hd 80", 1, 200, 2, 1, 80, 50, "float32"),
+            ("f32 hd 20", 1, 200, 4, 2, 20, 0, "float32"),
             ("hd 20 (no TMA)", 1, 200, 4, 2, 20, 0, "bfloat16"),
             ("long", 1, 16384, 2, 1, 128, 0, "bfloat16"),
-            FA_F32)
+            FA_MMA, FA_F32)
+# the f32 kernel's products: each operand is split into two TF32 parts
+# and a pair costs three TF32 products, so its bound is 3x the flops at
+# TF32_FLOPS
+FA_F32_PRODUCTS = 3
 # the factor of the kernel's own arithmetic floor over the function's
 # bound: P enters P V as two bf16 operands (head and remainder), so it
 # computes Q K^T once and P V twice, 6d flops a pair for the bound's 4d
@@ -1160,8 +1171,10 @@ def flash_phase(torch, rate):
         dtype = getattr(torch, dtype_name)
         q, k, v = (torch.randn(B, S, h, d, generator=g, device="cuda")
                    .to(dtype) for h in (Hq, Hkv, Hkv))
-        path = ("fma" if dtype == torch.float32 else
-                "mma" if "no TMA" in tag else "wgmma")
+        if tag == FA_MMA[0]:
+            v = torch.cat([v.new_zeros(1), v.flatten()])[1:].view(v.shape)
+        path = ("tf32x3" if dtype == torch.float32 else
+                "mma" if tag in ("hd 20 (no TMA)", FA_MMA[0]) else "wgmma")
         by0 = dict(fa.flash_attention_cuda.launches_by_path)
         got = fa.flash_attention(q, k, v, causal=True, window=window)
         by0[path] += 1
@@ -1181,11 +1194,11 @@ def flash_phase(torch, rate):
                 f"Hkv={Hkv} d={d:3d} window={window:2d} {dtype_name} "
                 f"[{path}]: max_abs_err={err:.3e} (rtol {rtol:.3g}, atol "
                 f"{atol:g})")
-        if tag in ("prefill", "long", "f32 prefill"):
+        if tag in ("prefill", "long", FA_MMA[0], FA_F32[0]):
             t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v),
-                               5 if dtype == torch.float32 else 20)
+                               10 if dtype == torch.float32 else 20)
             line += f" kernel_ms={t_k:.4f} eager_ms={e_k:.4f}"
-        if tag in ("prefill", "f32 prefill"):
+        if tag in ("prefill", FA_MMA[0], FA_F32[0]):
             t_p = time_events(torch, lambda: fa.flash_attention_ref(q, k, v),
                               2)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1197,8 +1210,9 @@ def flash_phase(torch, rate):
             flops = 4 * d * attention_pairs(S, True, window) * B * Hq
             nbytes = (2 * B * S * Hq * d + 2 * B * S * Hkv * d) \
                 * q.element_size()
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-            by_bytes, by_flops = nbytes / rate, flops / peak
+            by_bytes = nbytes / rate
+            by_flops = (flops / BF16_FLOPS if dtype == torch.bfloat16
+                        else FA_F32_PRODUCTS * flops / TF32_FLOPS)
             row = dict(ms=t_k, eager_ms=e_k, plain_ms=t_p, library_ms=t_l,
                        bound_ms=max(by_bytes, by_flops) * 1e3,
                        bound_by="bytes" if by_bytes >= by_flops
@@ -1207,12 +1221,17 @@ def flash_phase(torch, rate):
                      f"max_abs_err vs plain {lib_err:.3e}) bound_ms="
                      f"{row['bound_ms']:.4f} ({row['bound_by']}: "
                      f"{flops:.4g} flops, {nbytes / 1e6:.1f} MB)")
+            if dtype == torch.bfloat16:
+                floor = max(by_bytes, FA_FLOOR * by_flops) * 1e3
+                line += f" kernel_floor_ms={floor:.4f}"
+            else:
+                line += (f" ({FA_F32_PRODUCTS} TF32 products a pair; at "
+                         f"the f32 FMA rate {flops / F32_FLOPS * 1e3:.4f} "
+                         "ms)")
             if tag == "prefill":
-                row["floor_ms"] = max(by_bytes, FA_FLOOR * by_flops) * 1e3
-                line += f" kernel_floor_ms={row['floor_ms']:.4f}"
                 res.update(row)
             else:
-                res["f32_prefill"] = row
+                res[tag.replace(" ", "_")] = row
         print(line)
         del q, k, v, got, ref, diff
     return res
@@ -1261,7 +1280,7 @@ def lm_phases(torch, rate, zero_counts, read_counts):
                  f"impl={impl}")
         read_counts(label, {"flash_attention": expect})
         by_path = dict.fromkeys(fa.PATHS, 0)
-        by_path["fma" if cfg.dtype == "float32" else "wgmma"] = expect
+        by_path["tf32x3" if cfg.dtype == "float32" else "wgmma"] = expect
         got = fa.flash_attention_cuda.launches_by_path
         print(f"{label} flash_attention launches by path: {got} (expected "
               f"{by_path})")
@@ -3027,8 +3046,12 @@ def main() -> int:
         "zoo_launches": zoo["flash_attention"],
         "train_launches": train["k5_launches"],
         "f32_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
-                                "d=128, causal, f32 (fma)",
-                        **kres["flash_attention"].pop("f32_prefill")}}
+                                "d=128, causal, f32 (tf32x3)",
+                        **kres["flash_attention"].pop("f32_prefill")},
+        "mma_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
+                                "d=128, causal, bf16, v's base one "
+                                "element off (mma)",
+                        **kres["flash_attention"].pop("mma_prefill")}}
     kernels = []
     for key, (kname, source, replaces, work) in routes.items():
         r = kres[key]

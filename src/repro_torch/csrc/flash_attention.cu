@@ -63,10 +63,32 @@
 // * bf16 otherwise: flash_attention_mma_kernel, mma.sync m16n8k16 from 4
 //   warps on 64 x 64 tiles staged through registers, V^T fragments from
 //   ldmatrix.trans; the same hi/lo P split.
-// * f32: the same tiling with f32 FMAs outside the tensor cores (the
-//   reference's f32 sweep and the 2-layer f32 oracle use it). Warp w owns
-//   rows w, w + 8, ... of a 64-row tile, lane l key l of a 32-key tile and
-//   output columns l, l + 32, ...; shuffles reduce and broadcast p.
+// * f32 (the f32 LM oracles and every smoke config):
+//   flash_attention_tf32x3_kernel, split TF32 on the tensor cores. f32
+//   FMAs outside them top out at 67 TFLOP/s; a single TF32 product
+//   keeps 2^-11 of each operand, too coarse for f32 (2e-5). So each
+//   operand x is split into a TF32 head hi and the remainder lo = x - hi
+//   (of which the tensor core reads the top TF32 bits), and a product is
+//   lo*hi + hi*lo + hi*hi (lo*lo, ~2^-20, dropped) by mma.sync m16n8k8
+//   with f32 accumulators. hi truncates x (one and; ptxas then passes x
+//   itself, as the tensor core ignores the 13 low bits) except for V,
+//   whose hi is rounded to nearest (see split_tf32_rn). What bounds it:
+//   three times the function's flops at the 495 TFLOP/s TF32 rate (1.67
+//   ms at the prefill's shape); mma.sync itself peaks near two thirds of
+//   that rate, and the splits and the softmax share the warps' issue
+//   slots with the products. 8 warps own 32 rows each (two m16 tiles)
+//   of a 256-row tile, so each split K or V value feeds two products
+//   and each 32-key K/V tile in shared memory serves 256 rows; the tiles
+//   arrive by cp.async in a two-stage ring (16 bytes a copy where the
+//   layout allows, zero-filled past S and d) while the previous one is
+//   consumed, one barrier a tile. Q sits scaled in shared memory with
+//   each warp's rows g and g + 8 interleaved and a permutation of d
+//   inside each 16 columns (in both operands), so one 16-byte read gives
+//   an A fragment and one read of K the B fragments of two k-steps. The
+//   S accumulator's P[g][2t], P[g][2t + 1] serve as P V's A fragment
+//   directly, with V's keys permuted to match, so P moves through no
+//   shuffle. The softmax runs once per 32 keys on the rows a quad holds,
+//   in log2 units.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,144 +122,400 @@ __device__ __forceinline__ void key_range(int q0, int rows, int S, int causal,
   *end = causal ? min(q0 + rows, S) : S;
 }
 
-// ------------------------------------------------------------------ f32
+// 2^x by the SFU's ex2.approx (a few f32 ulp; results below 2^-126
+// flush to 0), the softmax's exponential; exp2f adds range handling
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-constexpr int kBQ = 64;              // query rows per block
-constexpr int kBK = 32;              // keys per tile (one per lane)
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;  // rows per warp
+// ---------------------------------------- f32, split TF32 tensor cores
 
+constexpr int kTfMT = 2;             // m16 tiles a warp: 32 query rows
+constexpr int kTfBQ = 128 * kTfMT;   // query rows per block
+constexpr int kTfBK = 32;            // keys per tile
+constexpr int kTfThreads = 256;      // 8 warps
+constexpr int kTfStages = 2;         // depth of the cp.async K/V ring
+
+// Shared memory, in floats. Each layout lets one 16-byte read give a
+// thread mma operands in register order, and a quarter-warp's eight
+// reads hit eight distinct 16-byte bank groups.
+// * Q, scaled: rows r and r + 8 of each 16 interleaved ("pair-row" r),
+//   element (r + 8s, c) at 2c + s; pitch 2 DP + 4 (4 mod 32).
+// * K: row-major, pitch DP + 16 (16 mod 32).
+// * V: row-major, pitch DP + 4 (4 mod 32).
 template <int DP>
-constexpr int fma_smem_bytes() {
-  // Q (kBQ x DP+4) + K (kBK x DP+4) + V (kBK x DP), f32
-  return 4 * (kBQ * (DP + 4) + kBK * (DP + 4) + kBK * DP);
+struct TfLayout {
+  static constexpr int kQP = 2 * DP + 4;
+  static constexpr int kKP = DP + 16;
+  static constexpr int kVP = DP + 4;
+  static constexpr int kQ = kTfBQ / 2 * kQP;
+  static constexpr int kK = kTfBK * kKP;
+  static constexpr int kV = kTfBK * kVP;
+  static constexpr int kBytes = 4 * (kQ + kTfStages * (kK + kV));
+};
+
+// x = hi + lo exactly, hi = x with its 13 low mantissa bits cleared (a
+// TF32 value); the tensor core reads the top TF32 bits of lo, so
+// |x - hi - tf32(lo)| < 2^-20 |x|. Where hi feeds an mma operand ptxas
+// passes x itself (the tensor core ignores those 13 bits): the split
+// costs one and and one subtraction.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// the same split with hi rounded to nearest (ties away from zero), by
+// integer ops. hi is then a register of its own, written where the mma
+// operand needs it: V's operand pairs come from two reads, and a
+// truncated hi (the loaded register itself) would first be copied next
+// to its partner. |x - hi - tf32(lo)| < 2^-21 |x|
+__device__ __forceinline__ void split_tf32_rn(float x, uint32_t& hi,
+                                              uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D = A (16x8 tf32, row) * B (8x8 tf32, col) + D, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// keys [k0, k0 + 64) of one KV head into a (64 x pitch P) tile by
+// cp.async: 16 bytes a copy when the head's base is 16-byte aligned and
+// its s stride a multiple of 4 floats (vec), else 4. A whole tile of
+// whole rows takes straight-line copies; an edge tile is zero-filled
+// beyond S and d (a copy reads only the bytes in range).
+template <int DP, int P>
+__device__ __forceinline__ void load_tile(float* tile, const float* base,
+                                          int64_t row_stride, int k0, int S,
+                                          int d, bool vec) {
+  constexpr int C = DP / 4, R = kTfThreads / C;   // a pass: R rows
+  if (vec && d == DP && k0 + kTfBK <= S) {
+    const int r = threadIdx.x / C, c = threadIdx.x % C * 4;
+    const float* src = base + (k0 + r) * row_stride + c;
+    float* dst = tile + r * P + c;
+#pragma unroll
+    for (int j = 0; j < kTfBK / R; ++j)
+      cp_async16(dst + j * R * P, src + j * R * row_stride, 16);
+  } else if (vec) {
+    for (int idx = threadIdx.x; idx < kTfBK * C; idx += kTfThreads) {
+      const int r = idx / C, c = idx % C * 4, key = k0 + r;
+      const int n = key < S ? max(0, min(4, d - c)) : 0;
+      cp_async16(tile + r * P + c, n ? base + key * row_stride + c : base,
+                 4 * n);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kTfBK * DP; idx += kTfThreads) {
+      const int r = idx / DP, c = idx % DP, key = k0 + r;
+      const bool in = key < S && c < d;
+      cp_async4(tile + r * P + c, in ? base + key * row_stride + c : base,
+                in ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ bool vec_rows(const float* base, int64_t stride,
+                                         int S) {
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0
+      && (stride % 4 == 0 || S == 1);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fma_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, int S, int Hq, int G,
-                           int d, Strides st, int causal, int window,
-                           float scale) {
-  constexpr int QP = DP + 4;         // row pitch: float4-aligned, and the
-                                     // lanes' float4 reads of K hit all banks
-  constexpr int NC = DP / 32;        // accumulator columns per lane
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * QP;
-  float* Vs = Ks + kBK * QP;
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_attention_tf32x3_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ out, int B, int S, int Hq,
+                              int G, int d, Strides st, int causal,
+                              int window, float scale_log2) {
+  using L = TfLayout<DP>;
+  constexpr int QP = L::kQP, KP = L::kKP, VP = L::kVP;
+  constexpr int MT = kTfMT;          // m-tiles a warp, 16 rows each
+  constexpr int NT = kTfBK / 8;      // n-tiles of S, 8 keys each
+  constexpr int ND = DP / 8;         // n-tiles of O, 8 columns each
+  constexpr int NJ = DP / 32;        // 32-column blocks of O
+  extern __shared__ float4 tf_smem[];
+  float* Qs = reinterpret_cast<float*>(tf_smem);
+  auto Ks = [&](int s) { return Qs + L::kQ + s * (L::kK + L::kV); };
+  auto Vs = [&](int s) { return Ks(s) + L::kK; };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qt = gridDim.x - 1 - blockIdx.x;    // heavy tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / G;
-  const int q0 = qt * kBQ;
+  // heavy (late) q tiles first, over every head and batch
+  const int n_qt = (S + kTfBQ - 1) / kTfBQ, per_qt = Hq * B;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / per_qt);
+  const int h = blockIdx.x % per_qt % Hq, b = blockIdx.x % per_qt / Hq;
+  const int hk = h / G, q0 = qt * kTfBQ;
+  int k_begin, k_end;
+  key_range(q0, kTfBQ, S, causal, window, &k_begin, &k_end);
+  const int kt0 = k_begin / kTfBK;
+  const int n_tiles = (k_end + kTfBK - 1) / kTfBK - kt0;
 
-  const float* qb = q + b * st.qb + h * st.qh;
   const float* kb = k + b * st.kb + hk * st.kh;
   const float* vb = v + b * st.vb + hk * st.vh;
+  const bool k_vec = vec_rows(kb, st.ks, S), v_vec = vec_rows(vb, st.vs, S);
+  load_tile<DP, KP>(Ks(0), kb, st.ks, kt0 * kTfBK, S, d, k_vec);
+  load_tile<DP, VP>(Vs(0), vb, st.vs, kt0 * kTfBK, S, d, v_vec);
+  cp_async_commit();
 
-  // q is scaled in f32 before the dot, as in the TPU kernel
-  for (int idx = threadIdx.x; idx < kBQ * DP; idx += kThreads) {
-    const int r = idx / DP, c = idx % DP;
-    const int row = q0 + r;
-    Qs[r * QP + c] = (row < S && c < d) ? qb[row * st.qs + c] * scale : 0.f;
+  // q in log2 units (scale * log2 e), scaled in f32 before the dot as in
+  // the TPU kernel, while the first tile is in flight
+  const float* qb = q + b * st.qb + h * st.qh;
+  for (int idx = threadIdx.x; idx < kTfBQ * DP; idx += kTfThreads) {
+    const int r = idx / DP, c = idx % DP, row = q0 + r;
+    Qs[(r >> 4 << 3 | (r & 7)) * QP + 2 * c + (r >> 3 & 1)] =
+        (row < S && c < d) ? qb[row * st.qs + c] * scale_log2 : 0.f;
   }
 
-  float m[kRows], l[kRows], acc[kRows][NC];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's rows: w_first + 16 mt + g + 8 hr
+  const int w_first = q0 + warp * 16 * MT, w_last = w_first + 16 * MT - 1;
+  // Q K^T permutes d inside each 16 columns, in both operands: k-step e
+  // of a pair takes columns 4t + 2e (A's column t, B's row t) and 4t + 2e
+  // + 1 (t + 4), so a 16-byte read of Q gives A (rows g, g + 8) and one of
+  // K gives B of both k-steps
+  const float* qf = Qs + (warp * MT * 8 + g) * QP + 8 * t;
+
+  float o[MT][ND][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+    for (int n = 0; n < ND; ++n)
+      o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
   }
 
-  int k_begin, k_end;
-  key_range(q0, kBQ, S, causal, window, &k_begin, &k_end);
-  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();                 // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < kBK * DP; idx += kThreads) {
-      const int r = idx / DP, c = idx % DP;
-      const int key = k0 + r;
-      const bool in = key < S && c < d;
-      Ks[r * QP + c] = in ? kb[key * st.ks + c] : 0.f;
-      Vs[r * DP + c] = in ? vb[key * st.vs + c] : 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();                 // tile i landed, tile i - 1 consumed
+    if (i + 1 < n_tiles) {
+      const int nk = (kt0 + i + 1) * kTfBK, ns = (i + 1) % kTfStages;
+      load_tile<DP, KP>(Ks(ns), kb, st.ks, nk, S, d, k_vec);
+      load_tile<DP, VP>(Vs(ns), vb, st.vs, nk, S, d, v_vec);
+      cp_async_commit();
     }
-    __syncthreads();
+    const int k0 = (kt0 + i) * kTfBK;
+    // a warp skips a tile none of its rows reaches (warp-uniform)
+    if (w_first >= S || (causal && k0 > w_last)
+        || (window > 0 && k0 + kTfBK - 1 <= w_first - window))
+      continue;
+    const bool masked = k0 + kTfBK > S
+        || (causal && k0 + kTfBK - 1 > w_first)
+        || (window > 0 && k0 <= w_last - window);
+    const float* Kt = Ks(i % kTfStages) + g * KP + 4 * t;
+    const float* Vt = Vs(i % kTfStages) + 2 * t * VP + 4 * g;
 
-    // scores of rows warp + 8 i against key k0 + lane
-    float s[kRows];
+    // S = Q K^T: s[mt][nt] holds keys nt*8 + 2t + {0, 1} of row g ([0],
+    // [1]) and row g + 8 ([2], [3]) of m-tile mt. Each split K value
+    // serves both m-tiles; the products run so that independent ones
+    // separate two on one accumulator.
+    float s[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(Ks + lane * QP);
-#pragma unroll 4
-    for (int c4 = 0; c4 < DP / 4; ++c4) {
-      const float4 kv = krow[c4];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 qv =
-            reinterpret_cast<const float4*>(Qs + (warp + kWarps * i) * QP)[c4];
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
+      for (int nt = 0; nt < NT; ++nt)
+        s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+#pragma unroll
+    for (int p = 0; p < DP / 16; ++p) {
+      float4 kv[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        kv[nt] = *reinterpret_cast<const float4*>(Kt + nt * 8 * KP + 16 * p);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              qf + mt * 8 * QP + 32 * p + 4 * e);
+          split_tf32(qv.x, ah[mt][0], al[mt][0]);
+          split_tf32(qv.y, ah[mt][1], al[mt][1]);
+          split_tf32(qv.z, ah[mt][2], al[mt][2]);
+          split_tf32(qv.w, ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          split_tf32(e ? kv[nt].z : kv[nt].x, bh[nt][0], bl[nt][0]);
+          split_tf32(e ? kv[nt].w : kv[nt].y, bh[nt][1], bl[nt][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_tf32(s[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_tf32(s[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_tf32(s[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
       }
     }
 
-    const int key = k0 + lane;
+    // mask (edge tiles only) and the online softmax in log2 units; each
+    // row lives in a quad
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + warp + kWarps * i;
-      const float si = keep(key, row, S, causal, window) ? s[i] : kNegInf;
-      float mx = si;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float p = expf(si - m_new);
-      float ps = p;
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = w_first + 16 * mt + g + 8 * hr;
+        float mx = kNegInf;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + ps;
-      m[i] = m_new;
-      s[i] = p;
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= alpha;
-    }
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hr + e];
+            if (masked && !keep(k0 + nt * 8 + 2 * t + e, row, S, causal,
+                                window))
+              x = kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mt][hr], mx);
+        const float alpha = exp2_approx(m[mt][hr] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hr + e];
+            x = exp2_approx(x - m_new);
+            ps += x;
+          }
+        l[mt][hr] = alpha * l[mt][hr] + ps;  // this lane's share
+        m[mt][hr] = m_new;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          o[mt][n][2 * hr] *= alpha;
+          o[mt][n][2 * hr + 1] *= alpha;
+        }
+      }
 
-    // acc[row, col] += sum_key p[row, key] * V[key, col]
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vk[NC];
+    // O += P V, k-step kk = keys kk*8 .. kk*8 + 7. The accumulator's
+    // P[g][2t], P[g][2t + 1] serve as A's (g, t), (g, t + 4): keys 2t and
+    // 2t + 1 take A's columns t and t + 4, so B's rows t and t + 4 are
+    // V's keys 2t and 2t + 1, and no shuffle moves P. Column n of O's
+    // n-tile 4j + c is output column 32j + 4n + c, so a thread's 16-byte
+    // reads of rows 2t and 2t + 1 give B of four n-tiles, for both
+    // m-tiles.
 #pragma unroll
-      for (int j = 0; j < NC; ++j) vk[j] = Vs[kk * DP + lane + 32 * j];
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ph[MT][4], pl[MT][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = __shfl_sync(0xffffffffu, s[i], kk);
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][kk][0], ph[mt][0], pl[mt][0]);
+        split_tf32(s[mt][kk][2], ph[mt][1], pl[mt][1]);
+        split_tf32(s[mt][kk][1], ph[mt][2], pl[mt][2]);
+        split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
+      }
+      const float* vr = Vt + kk * 8 * VP;
 #pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p, vk[j], acc[i][j]);
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t vh[8], vl[8];
+        const float4 v0 = *reinterpret_cast<const float4*>(vr + 32 * j);
+        const float4 v1 =
+            *reinterpret_cast<const float4*>(vr + VP + 32 * j);
+        split_tf32_rn(v0.x, vh[0], vl[0]);
+        split_tf32_rn(v1.x, vh[1], vl[1]);
+        split_tf32_rn(v0.y, vh[2], vl[2]);
+        split_tf32_rn(v1.y, vh[3], vl[3]);
+        split_tf32_rn(v0.z, vh[4], vl[4]);
+        split_tf32_rn(v1.z, vh[5], vl[5]);
+        split_tf32_rn(v0.w, vh[6], vl[6]);
+        split_tf32_rn(v1.w, vh[7], vl[7]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mma_tf32(o[mt][4 * j + c], pl[mt], vh[2 * c], vh[2 * c + 1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mma_tf32(o[mt][4 * j + c], ph[mt], vl[2 * c], vl[2 * c + 1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mma_tf32(o[mt][4 * j + c], ph[mt], vh[2 * c], vh[2 * c + 1]);
       }
     }
   }
 
+  // thread (g, t) holds output columns 32j + 8t .. 32j + 8t + 7 of its
+  // rows: o[mt][4j + c][2hr] is column 32j + 8t + c, o[mt][4j + c][2hr +
+  // 1] column 32j + 8t + 4 + c
   float* ob = out + ((int64_t)b * S * Hq + h) * d;
+  const bool vec_out = d % 4 == 0;   // 16-byte aligned column groups
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + warp + kWarps * i;
-    if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int c = lane + 32 * j;
-      if (c < d) ob[(int64_t)row * Hq * d + c] = acc[i][j] * inv;
+    for (int hr = 0; hr < 2; ++hr) {
+      float lt = l[mt][hr];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row = w_first + 16 * mt + g + 8 * hr;
+      if (row >= S) continue;
+      const float inv = 1.f / fmaxf(lt, 1e-30f);
+      float* orow = ob + (int64_t)row * Hq * d;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c0 = 32 * j + 8 * t;
+        float x[8];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          x[c] = o[mt][4 * j + c][2 * hr] * inv;
+          x[c + 4] = o[mt][4 * j + c][2 * hr + 1] * inv;
+        }
+        if (vec_out && c0 + 8 <= d) {
+          *reinterpret_cast<float4*>(orow + c0) =
+              make_float4(x[0], x[1], x[2], x[3]);
+          *reinterpret_cast<float4*>(orow + c0 + 4) =
+              make_float4(x[4], x[5], x[6], x[7]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (c0 + c < d) orow[c0 + c] = x[c];
+        }
+      }
     }
-  }
 }
 
 // ----------------------------------------------------- bf16, tensor cores
@@ -468,14 +746,6 @@ struct WgLayout {
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kWgStages)
       + 1024;                        // room to align the base
 };
-
-// 2^x by the SFU's ex2.approx (a few f32 ulp; results below 2^-126
-// flush to 0), the softmax's exponential; exp2f adds range handling
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // O (64 x DP) += P (64 x 16, registers) V (16 x DP, MN-major)
 template <int DP>
@@ -775,18 +1045,18 @@ cudaError_t allow_smem(K kernel, int bytes, bool* done) {
 }
 
 template <int DP>
-int launch_f32(const float* q, const float* k, const float* v, float* out,
-               int B, int S, int Hq, int Hkv, int d, const Strides& st,
-               int causal, int window, cudaStream_t stream) {
+int launch_tf32x3(const float* q, const float* k, const float* v, float* out,
+                  int B, int S, int Hq, int Hkv, int d, const Strides& st,
+                  int causal, int window, cudaStream_t stream) {
   static bool done = false;
-  auto kernel = flash_attention_fma_kernel<DP>;
-  constexpr int bytes = fma_smem_bytes<DP>();
+  auto kernel = flash_attention_tf32x3_kernel<DP>;
+  constexpr int bytes = TfLayout<DP>::kBytes;
   const cudaError_t err = allow_smem(kernel, bytes, &done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      q, k, v, out, S, Hq, Hq / Hkv, d, st, causal, window,
-      (float)(1.0 / sqrt((double)d)));
+  const int64_t blocks = (int64_t)((S + kTfBQ - 1) / kTfBQ) * Hq * B;
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  kernel<<<(unsigned)blocks, kTfThreads, bytes, stream>>>(
+      q, k, v, out, B, S, Hq, Hq / Hkv, d, st, causal, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -893,7 +1163,8 @@ Strides strides_of(const long long* s) {
 // (B, S, Hkv, d) of one dtype on one device, unit stride in d, element
 // strides `strides` = (q: b, s, h; k: b, s, h; v: b, s, h), all >= 0;
 // 1 <= d <= 128; Hq % Hkv == 0; B, Hq <= 65535; S >= 1; window >= 0; out
-// a contiguous (B, S, Hq, d) buffer it allocated.
+// a contiguous (B, S, Hq, d) buffer it allocated. For this f32 entry
+// (the split-TF32 kernel) also ceil(S / 128) * Hq * B < 2^31.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* out, int B, int S,
                                    int Hq, int Hkv, int d,
@@ -902,13 +1173,13 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
   const Strides st = strides_of(strides);
   const cudaStream_t s = (cudaStream_t)stream;
   if (d <= 32)
-    return launch_f32<32>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
-                          window, s);
+    return launch_tf32x3<32>(q, k, v, out, B, S, Hq, Hkv, d, st,
+                             causal, window, s);
   if (d <= 64)
-    return launch_f32<64>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
-                          window, s);
-  return launch_f32<128>(q, k, v, out, B, S, Hq, Hkv, d, st, causal, window,
-                         s);
+    return launch_tf32x3<64>(q, k, v, out, B, S, Hq, Hkv, d, st,
+                             causal, window, s);
+  return launch_tf32x3<128>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
+                            window, s);
 }
 
 // The mma.sync kernel, for any bf16 layout the caller guarantees.

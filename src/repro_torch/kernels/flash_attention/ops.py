@@ -12,7 +12,8 @@ header for what bounds them on the card and how the design answers
 that), one per path that :func:`kernel_path` picks from the inputs:
 ``"wgmma"`` (bf16 whose layout TMA can read: warpgroup MMAs on tiles
 that TMA loads), ``"mma"`` (any other bf16 layout: mma.sync) and
-``"fma"`` (f32: f32 FMAs), all with f32 softmax statistics. They read
+``"tf32x3"`` (f32: mma.sync on TF32 operands split in two, three
+products a pair), all with f32 softmax statistics. They read
 the layout through its strides, so the reference's transposes and its
 padding of d and S exist nowhere here.
 """
@@ -29,10 +30,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-PATHS = ("wgmma", "mma", "fma")
+PATHS = ("wgmma", "mma", "tf32x3")
 _ENTRIES = {"wgmma": "flash_attention_bf16_wgmma",
             "mma": "flash_attention_bf16_mma",
-            "fma": "flash_attention_f32"}
+            "tf32x3": "flash_attention_f32"}
 # host-side failures of the wgmma launch (negative return codes)
 _HOST_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
                 -2: "the driver refused a TMA tensor map"}
@@ -63,12 +64,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention_cuda` launches for these
     inputs, from their dtype, shapes, strides and base addresses alone:
-    ``"fma"`` for f32; for bf16 ``"wgmma"`` when TMA can read all three
+    ``"tf32x3"`` for f32; for bf16 ``"wgmma"`` when TMA can read all three
     (each base address 16-byte aligned and each b, s, h stride of a
     dimension longer than 1 a positive multiple of 16 bytes), else
     ``"mma"``. Works on tensors on any device."""
     if q.dtype != torch.bfloat16:
-        return "fma"
+        return "tf32x3"
     for t in (q, k, v):
         if t.data_ptr() % 16:
             return "mma"
@@ -146,7 +147,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"B={B}, Hq={Hq}, window={window} beyond the "
                          "kernel's grid")
     path = kernel_path(q, k, v)
-    if path == "wgmma" and -(-S // 128) * Hq * B >= 2 ** 31:
+    if path != "mma" and -(-S // 128) * Hq * B >= 2 ** 31:
         raise ValueError(f"B={B}, S={S}, Hq={Hq} beyond the kernel's grid")
     out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:

@@ -43,7 +43,7 @@ the SSD forms on the card against the CPU, f32, atol 1e-5 (f32 sums in
 another order; the routing itself must be equal; the SSD's outputs
 reach ~30, so they are held to rtol 1e-5 as well); jamba-smoke's prefill
 through K5 (one launch a hybrid super-block's attention layer, on the
-fma path in f32) against its plain prefill, atol 1e-4 of the largest
+tf32x3 path in f32) against its plain prefill, atol 1e-4 of the largest
 logit.
 
 Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
@@ -358,7 +358,7 @@ def _qkv(B, S, Hq, Hkv, d, dtype, device, seed=0):
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, Hq, Hkv, d,
                                               window, causal):
     q, k, v = _qkv(B, S, Hq, Hkv, d, dtype, cuda, seed=S + d)
-    path = "fma" if dtype == torch.float32 else "wgmma"
+    path = "tf32x3" if dtype == torch.float32 else "wgmma"
     got = _launch_checked(q, k, v, path, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -441,6 +441,42 @@ def test_flash_attention_unaligned_bf16_takes_mma(cuda, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["d=20", "heads-major", "ragged",
+                                    "offset", "s stride 18"])
+def test_flash_attention_f32_layouts(cuda, layout):
+    """The split-TF32 kernel on f32 layouts off its main path: d = 20 (not
+    a multiple of 8: 16-byte copies zero-filled past d, the last columns
+    stored one by one), a heads-major (B, H, S, d) tensor seen as
+    (B, S, H, d), non-causal ragged S, and inputs that take the 4-byte
+    copies (a base 4 bytes past an alignment; d = 18, an s stride of 18
+    floats)."""
+    kw = dict(causal=True, window=0)
+    if layout == "d=20":
+        q, k, v = _qkv(1, 150, 4, 2, 20, torch.float32, cuda, seed=21)
+        kw["window"] = 40
+    elif layout == "heads-major":
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _qkv(2, 130, 8, 2, 64, torch.float32, cuda,
+                                 seed=22))
+        assert q.stride(2) == 130 * 64
+    elif layout == "ragged":
+        q, k, v = _qkv(1, 131, 4, 2, 128, torch.float32, cuda, seed=23)
+        kw["causal"] = False
+    elif layout == "offset":
+        q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                   .view(t.shape) for t in _qkv(1, 150, 4, 2, 64,
+                                                torch.float32, cuda,
+                                                seed=24))
+        assert k.data_ptr() % 16 == 4
+    else:
+        q, k, v = _qkv(1, 100, 3, 1, 18, torch.float32, cuda, seed=25)
+        assert k.stride(1) == 18
+    got = _launch_checked(q, k, v, "tf32x3", **kw)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, ref, **FA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
 def test_flash_attention_reads_strided_inputs(cuda):
     """Slices of wider (B, S, H, 2d) tensors: the kernel reads the b, s and
     h strides it is given."""
@@ -486,11 +522,11 @@ def test_attn_forward_kernel_launches_and_skips_plain(cuda, monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_ref", refuse)
     monkeypatch.setattr(attn, "_sdpa", refuse)
     n0 = fa.flash_attention_cuda.launches
-    fma0 = fa.flash_attention_cuda.launches_by_path["fma"]
+    tf0 = fa.flash_attention_cuda.launches_by_path["tf32x3"]
     got = attn.attn_forward(p, x, cfg, impl="kernel")
     torch.cuda.synchronize()
     assert fa.flash_attention_cuda.launches == n0 + 1
-    assert fa.flash_attention_cuda.launches_by_path["fma"] == fma0 + 1
+    assert fa.flash_attention_cuda.launches_by_path["tf32x3"] == tf0 + 1
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.abs().max()))
 

@@ -13,7 +13,16 @@ interpret mode K4 is held to the reference's own tolerance
 (``tests/test_kernels.py``: 1e-4, and 0.05 for a bf16 operand). The CUDA
 kernels themselves are checked against their plain versions in
 ``tests/test_torch_cuda.py``, which needs a card.
+
+The f32 flash attention kernel computes with split TF32 products; its
+arithmetic is rebuilt here in PyTorch (each operand split into a TF32
+head hi and the remainder lo, three products a pair; the heads rounded
+as the kernel rounds them, and all to nearest) and held against the
+plain version to the card's f32 tolerance, rtol/atol 2e-5, at scores
+reaching ~30; one TF32 product a pair must miss that tolerance.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -272,7 +281,7 @@ def _zeros(shape, dtype=torch.bfloat16):
 
 _PATH_CASES = {
     # name: (q, k, v builder, the kernel flash_attention_cuda launches)
-    "f32": (lambda: [_zeros((1, 8, 4, 64), torch.float32)] * 3, "fma"),
+    "f32": (lambda: [_zeros((1, 8, 4, 64), torch.float32)] * 3, "tf32x3"),
     "bf16 contiguous d=128": (
         lambda: [_zeros((2, 8, 4, 128)), _zeros((2, 8, 2, 128)),
                  _zeros((2, 8, 2, 128))], "wgmma"),
@@ -363,3 +372,122 @@ def test_library_path_covers_every_header(tmp_path, monkeypatch):
     assert build.library_path("k") == third
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
     assert build.library_path("k") not in (first, second, third)
+
+# ----------------------------- the f32 attention kernel's split TF32 sums
+
+FA_F32_TOL = dict(rtol=2e-5, atol=2e-5)   # FA_TOL[float32] of the card
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits): to nearest, ties
+    away from zero, on the 13 low bits (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 with its 13 low mantissa bits cleared: the TF32 value that the
+    tensor core reads from an f32 register."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_split(a, b, head_a, head_b, tail):
+    """a @ b by three TF32 products summed in f32: each operand x splits
+    into hi = head(x) and lo = tail(x - hi), and a product is lo*hi +
+    hi*lo + hi*hi (lo*lo dropped)."""
+    ah, bh = head_a(a), head_b(b)
+    al, bl = tail(a - ah), tail(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+# how each split rounds (the heads of Q K^T's operands, P's head, V's
+# head, every remainder): "kernel" as the CUDA kernel does (heads
+# truncated but V's rounded to nearest; the tensor core truncates the
+# remainders), "rna" everything rounded to nearest
+_SPLITS = {"kernel": (_tf32_trunc, _tf32_trunc, _tf32, _tf32_trunc),
+           "rna": (_tf32, _tf32, _tf32, _tf32)}
+
+
+def _attention_tf32(q, k, v, causal, window, split):
+    """The kernel's f32 attention on the CPU: q scaled to log2 units in
+    f32 before the dot, S = Q K^T and O = P V by split TF32 products
+    (``split`` a key of ``_SPLITS``, or "single": one TF32 product of
+    rounded operands), softmax by exp2 with the finite -1e30 mask, O
+    divided by the row sums last."""
+    B, S, Hq, d = q.shape
+    G = Hq // k.shape[2]
+    if split == "single":
+        qk = pv = (lambda a, b: _tf32(a) @ _tf32(b))
+    else:
+        h_qk, h_p, h_v, tail = _SPLITS[split]
+        qk = (lambda a, b: _mm_split(a, b, h_qk, h_qk, tail))
+        pv = (lambda a, b: _mm_split(a, b, h_p, h_v, tail))
+    qs = q * np.float32(math.log2(math.e) / math.sqrt(d))
+    kr, vr = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+    s = qk(qs.transpose(1, 2), kr.transpose(2, 3))
+    qi = torch.arange(S)[:, None]
+    ki = torch.arange(S)[None, :]
+    ok = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        ok &= ki <= qi
+    if window > 0:
+        ok &= ki > qi - window
+    s = s.masked_fill(~ok, fa.NEG_INF)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = pv(p, vr) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
+def _scaled_qkv(seed, B, S, Hq, Hkv, d):
+    """q and k x 3 so that scores q.k / sqrt(d) reach ~30, as in the f32
+    LM oracle; v unit normal."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, d))
+                                .astype(np.float32))
+               for h in (Hq, Hkv, Hkv))
+    return 3 * q, 3 * k, v
+
+
+@pytest.mark.parametrize("split", sorted(_SPLITS))
+@pytest.mark.parametrize("d", [16, 80, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 50),
+                                           (False, 50)])
+def test_flash_attention_split_tf32_matches_plain(d, causal, window, split):
+    q, k, v = _scaled_qkv(d + window, 1, 150, 4, 2, d)
+    top = float(torch.einsum("bshd,bthd->bhst", q[:, :, ::2], k).abs()
+                .max()) / math.sqrt(d)
+    assert top > 25
+    got = _attention_tf32(q, k, v, causal, window, split)
+    ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, ref, **FA_F32_TOL)
+
+
+def test_flash_attention_single_tf32_product_misses_f32_tolerance():
+    """What the split buys: one TF32 product a pair (2^-11 of each operand)
+    misses the f32 tolerance by far, so the test above guards the split."""
+    q, k, v = _scaled_qkv(1, 1, 150, 4, 2, 128)
+    ref = fa.flash_attention_ref(q, k, v, causal=True)
+    one = _attention_tf32(q, k, v, True, 0, "single")
+    three = _attention_tf32(q, k, v, True, 0, "kernel")
+    err1, err3 = (float((x - ref).abs().max()) for x in (one, three))
+    assert err1 > 10 * FA_F32_TOL["atol"] and err1 > 30 * err3
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(one, ref, **FA_F32_TOL)
+
+
+def test_tf32_roundings():
+    """The helpers' roundings: to nearest with ties away from zero in
+    either sign, and truncation; TF32 values stay as they are; each split
+    leaves a remainder below its bound."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, 1 + ulp,
+                      -(1 + ulp / 2), 3.0, -0.0], dtype=torch.float32)
+    assert torch.equal(_tf32(x), torch.tensor(
+        [1 + ulp, 1.0, 1 + ulp, -(1 + ulp), 3.0, -0.0]))
+    assert torch.equal(_tf32_trunc(x), torch.tensor(
+        [1.0, 1.0, 1 + ulp, -1.0, 3.0, -0.0]))
+    r = torch.randn(1000)
+    for head, bound in ((_tf32, 2.0 ** -21), (_tf32_trunc, 2.0 ** -20)):
+        hi = head(r)
+        assert torch.all((r - hi - _tf32_trunc(r - hi)).abs()
+                         < bound * r.abs())
