@@ -107,12 +107,17 @@ drawn on the card from a seed, bf16 compute):
 8. Flash attention: the kernel against its plain version at the
    prefill's shape (B=2, S=4096, 32 q heads, 2 KV heads, d=128, bf16)
    and at edge cases (ragged S, windows, head dims 16/48/80, MHA, f32,
-   a layout that TMA cannot read, a 16 384-token sequence), each on the
-   kernel its layout selects (wgmma, mma or tf32x3: checked), timed at
-   the prefill's shape against the bound, the kernel's own floor (1.5x
-   the bound: P V runs twice, P's bf16 head and remainder), the plain
-   version and PyTorch's SDPA; the mma path timed the same way at the
-   prefill's shape with v's base one element off (FA_MMA), and the f32
+   layouts that TMA cannot read as they lie, a 16 384-token sequence),
+   each on the kernel its layout selects (wgmma, wgmma_staged or
+   tf32x3: checked), timed at the prefill's shape against the bound,
+   the kernel's own floor (1.5x the bound: P V runs twice, P's bf16 head
+   and remainder), the plain version and PyTorch's SDPA; the same at the
+   prefill's shape on wgmma_staged (the wgmma kernel on copies that TMA
+   can read, the copies' time included and printed on its own), with
+   v's base one element off (FA_SHIFTED) and with q, k, v sliced out of
+   132-wide buffers (FA_STAGED), each bit for bit the output of the
+   same kernel on clones, their library time SDPA's on clones (the
+   clones' time printed beside it), and the f32
    (tf32x3) path on f32 inputs (FA_F32; its bound three TF32 products a
    pair at the TF32 rate, the f32 FMA rate's figure printed beside it).
 9. A': two layers at full width in f32: the prefill through the kernel
@@ -297,9 +302,14 @@ TF32_FLOPS = 495e12     # H100/H200 SXM TF32 tensor-core rate, dense
 # outputs near zero
 FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
 FA_MAIN = ("prefill", 2, 4096, 32, 2, 128, 0, "bfloat16")
-# the mma.sync path timed at the prefill's shape: v's base one bf16
-# element past an alignment, so TMA cannot read it
-FA_MMA = ("mma prefill",) + FA_MAIN[1:]
+# the wgmma_staged path (copies TMA can read of the tensors it cannot,
+# then the wgmma kernel) timed at the prefill's shape on two layouts: v's
+# base one bf16 element past an alignment (FA_SHIFTED: v copied), and q,
+# k, v the first 128 columns of (B, S, H, 132) buffers, an h stride of
+# 264 bytes (FA_STAGED: all three copied)
+FA_SHIFTED = ("shifted prefill",) + FA_MAIN[1:]
+FA_STAGED = ("staged prefill",) + FA_MAIN[1:]
+FA_STAGED_WIDTH = 132
 # the f32 (split-TF32) path timed at the prefill's shape, on f32 inputs
 FA_F32 = ("f32 prefill", 2, 4096, 32, 2, 128, 0, "float32")
 FA_CASES = (FA_MAIN,
@@ -316,7 +326,7 @@ FA_CASES = (FA_MAIN,
             ("f32 hd 20", 1, 200, 4, 2, 20, 0, "float32"),
             ("hd 20 (no TMA)", 1, 200, 4, 2, 20, 0, "bfloat16"),
             ("long", 1, 16384, 2, 1, 128, 0, "bfloat16"),
-            FA_MMA, FA_F32)
+            FA_SHIFTED, FA_STAGED, FA_F32)
 # the f32 kernel's products: each operand is split into two TF32 parts
 # and a pair costs three TF32 products, so its bound is 3x the flops at
 # TF32_FLOPS
@@ -1169,12 +1179,14 @@ def flash_phase(torch, rate):
     res = {"err": 0.0}
     for tag, B, S, Hq, Hkv, d, window, dtype_name in FA_CASES:
         dtype = getattr(torch, dtype_name)
-        q, k, v = (torch.randn(B, S, h, d, generator=g, device="cuda")
-                   .to(dtype) for h in (Hq, Hkv, Hkv))
-        if tag == FA_MMA[0]:
+        width = FA_STAGED_WIDTH if tag == FA_STAGED[0] else d
+        q, k, v = (torch.randn(B, S, h, width, generator=g, device="cuda")
+                   .to(dtype)[..., :d] for h in (Hq, Hkv, Hkv))
+        if tag == FA_SHIFTED[0]:
             v = torch.cat([v.new_zeros(1), v.flatten()])[1:].view(v.shape)
-        path = ("tf32x3" if dtype == torch.float32 else
-                "mma" if tag in ("hd 20 (no TMA)", FA_MMA[0]) else "wgmma")
+        path = ("tf32x3" if dtype == torch.float32 else "wgmma_staged"
+                if tag in ("hd 20 (no TMA)", FA_SHIFTED[0], FA_STAGED[0])
+                else "wgmma")
         by0 = dict(fa.flash_attention_cuda.launches_by_path)
         got = fa.flash_attention(q, k, v, causal=True, window=window)
         by0[path] += 1
@@ -1194,17 +1206,45 @@ def flash_phase(torch, rate):
                 f"Hkv={Hkv} d={d:3d} window={window:2d} {dtype_name} "
                 f"[{path}]: max_abs_err={err:.3e} (rtol {rtol:.3g}, atol "
                 f"{atol:g})")
-        if tag in ("prefill", "long", FA_MMA[0], FA_F32[0]):
+        timed = ("prefill", FA_SHIFTED[0], FA_STAGED[0], FA_F32[0])
+        if tag in timed + ("long",):
             t_k, e_k = time_ms(lambda: fa.flash_attention(q, k, v),
                                10 if dtype == torch.float32 else 20)
             line += f" kernel_ms={t_k:.4f} eager_ms={e_k:.4f}"
-        if tag in ("prefill", FA_MMA[0], FA_F32[0]):
+        if tag in timed:
             t_p = time_events(torch, lambda: fa.flash_attention_ref(q, k, v),
                               2)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
             lib_err = float((lib.transpose(1, 2).float()
                              - ref.float()).abs().max())
+            extra = {}
+            if tag in (FA_SHIFTED[0], FA_STAGED[0]):
+                check(torch.equal(got, fa.flash_attention(
+                    q.clone(), k.clone(), v.clone())),
+                      f"flash_attention {tag}: differs from the wgmma "
+                      "kernel on clones of its inputs")
+                t_copy = time_events(torch, lambda: [fa.tma_ready(x)
+                                                     for x in (q, k, v)], 5)
+                # SDPA on the layout as it lies is no yardstick (at
+                # FA_SHIFTED its answer is wrong): the library time is
+                # SDPA's on clones (clone, unlike contiguous, also moves
+                # a misaligned view), the clones' own time beside it
+                t_c = time_events(torch, lambda: [x.clone()
+                                                  for x in (q, k, v)], 5)
+                qt, kt, vt = (x.clone().transpose(1, 2) for x in (q, k, v))
+                clone_err = float((sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True).transpose(1, 2)
+                                   .float() - ref.float()).abs().max())
+                print(f"flash_attention {tag}: its copies (tma_ready) "
+                      f"{t_copy:.4f} ms of kernel_ms; q, k, v .clone() "
+                      f"{t_c:.4f} ms; sdpa on the clones max_abs_err vs "
+                      f"plain {clone_err:.3e}, on the view as it lies "
+                      f"{lib_err:.3e}")
+                extra = dict(copy_ms=t_copy, clone_ms=t_c,
+                             library_err=clone_err,
+                             library_err_on_view=lib_err)
+                lib_err = clone_err
             t_l = time_events(torch, lambda: sdpa(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 5)
             flops = 4 * d * attention_pairs(S, True, window) * B * Hq
@@ -1216,7 +1256,7 @@ def flash_phase(torch, rate):
             row = dict(ms=t_k, eager_ms=e_k, plain_ms=t_p, library_ms=t_l,
                        bound_ms=max(by_bytes, by_flops) * 1e3,
                        bound_by="bytes" if by_bytes >= by_flops
-                       else "operations")
+                       else "operations", **extra)
             line += (f" plain_ms={t_p:.4f} library_ms={t_l:.4f} (sdpa "
                      f"max_abs_err vs plain {lib_err:.3e}) bound_ms="
                      f"{row['bound_ms']:.4f} ({row['bound_by']}: "
@@ -3048,10 +3088,17 @@ def main() -> int:
         "f32_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
                                 "d=128, causal, f32 (tf32x3)",
                         **kres["flash_attention"].pop("f32_prefill")},
-        "mma_prefill": {"work": "one launch, B=2, S=4096, Hq=32, Hkv=2, "
-                                "d=128, causal, bf16, v's base one "
-                                "element off (mma)",
-                        **kres["flash_attention"].pop("mma_prefill")}}
+        "shifted_prefill": {"work": "a copy of v and one launch, B=2, "
+                                    "S=4096, Hq=32, Hkv=2, d=128, causal, "
+                                    "bf16, v's base one element off "
+                                    "(wgmma_staged)",
+                            **kres["flash_attention"].pop("shifted_prefill")},
+        "staged_prefill": {"work": "copies of q, k, v and one launch, "
+                                   "B=2, S=4096, Hq=32, Hkv=2, d=128, "
+                                   "causal, bf16, q, k, v the first 128 "
+                                   "columns of (B, S, H, 132) buffers "
+                                   "(wgmma_staged)",
+                           **kres["flash_attention"].pop("staged_prefill")}}
     kernels = []
     for key, (kname, source, replaces, work) in routes.items():
         r = kres[key]

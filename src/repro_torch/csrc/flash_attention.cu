@@ -26,16 +26,23 @@
 // loops over only the key tiles its rows can reach, from the window's
 // first key to the causal diagonal. Heavy (late) q tiles are launched
 // first. The (B, S, H, d) layout is read through its strides (the d
-// stride must be 1), nothing is padded or transposed in device memory,
-// and no row >= S is written. Masked scores take the reference's finite
+// stride must be 1), nothing is transposed in device memory, and no row
+// >= S is written. Masked scores take the reference's finite
 // -1e30: a row that is fully masked inside a reachable tile gets
 // exp(0) = 1 "garbage", which the next tile with a real key clears
 // through alpha = exp(-1e30 - m) = 0, exactly as in the reference;
 // -INFINITY would give exp(-inf + inf) = NaN there.
 //
-// * bf16 with TMA-able inputs (the model's path; every b, s, h stride a
-//   positive multiple of 16 bytes and every base 16-byte aligned, which
-//   the wrapper tests): flash_attention_wgmma_kernel, warp-specialised.
+// * bf16: flash_attention_wgmma_kernel, warp-specialised. TMA reads a
+//   tensor whose b, s, h strides are positive multiples of 16 bytes and
+//   whose base is 16-byte aligned (the model's path). Any other bf16
+//   tensor (d not a multiple of 8, a slice of a wider buffer, a view at an odd
+//   offset, a broadcast batch) the wrapper first copies into a fresh
+//   buffer whose rows are padded to 16 bytes, and launches this same
+//   kernel on the copy: a TMA box cannot start off a 16-byte boundary,
+//   and a producer that reads such rows itself (cp.async and byte
+//   shifts) ran at 1.7-2.6x this kernel's time on an H100, where the
+//   copy costs a tenth of it.
 //   A producer warpgroup (one thread issuing, registers given back with
 //   setmaxnreg) loads Q once and K/V tiles of 128 keys into a ring of
 //   kWgStages = 3 stages with TMA, through 4-D tensor maps over
@@ -60,9 +67,6 @@
 //   keeps f32-level agreement with the plain version instead of the
 //   2^-8 of a single bf16 P; the products cost 1.5x the function's
 //   bound, the kernel's own arithmetic floor.
-// * bf16 otherwise: flash_attention_mma_kernel, mma.sync m16n8k16 from 4
-//   warps on 64 x 64 tiles staged through registers, V^T fragments from
-//   ldmatrix.trans; the same hi/lo P split.
 // * f32 (the f32 LM oracles and every smoke config):
 //   flash_attention_tf32x3_kernel, split TF32 on the tensor cores. f32
 //   FMAs outside them top out at 67 TFLOP/s; a single TF32 product
@@ -518,210 +522,6 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q,
     }
 }
 
-// ----------------------------------------------------- bf16, tensor cores
-
-constexpr int kMmaBQ = 64;           // query rows per block (16 per warp)
-constexpr int kMmaBK = 64;           // keys per tile
-constexpr int kMmaThreads = 128;
-
-template <int DP>
-constexpr int mma_smem_bytes() {     // Q, K, V tiles of (64 x DP+8) bf16
-  return 2 * (kMmaBQ + 2 * kMmaBK) * (DP + 8);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, f32 accumulators
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give matrix i's rows
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const bf16* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [r0, r0 + 64) of one head into a (64 x DP+8) tile, zero beyond S
-// and d, one element a thread at a time: this kernel takes the layouts
-// that 16-byte loads (and TMA) cannot read
-template <int DP>
-__device__ __forceinline__ void stage(bf16* tile, const bf16* base,
-                                      int64_t row_stride, int r0, int S,
-                                      int d) {
-  constexpr int P = DP + 8;
-  for (int idx = threadIdx.x; idx < 64 * DP; idx += kMmaThreads) {
-    const int r = idx / DP, c = idx % DP;
-    tile[r * P + c] = (r0 + r < S && c < d)
-        ? base[(r0 + r) * row_stride + c] : __float2bfloat16(0.f);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out,
-                           int S, int Hq, int G, int d, Strides st,
-                           int causal, int window, float scale) {
-  constexpr int P = DP + 8;          // row pitch (bf16): 16-byte aligned
-                                     // rows whose 8 fragment rows hit
-                                     // distinct banks
-  constexpr int KS = DP / 16;        // k-steps of Q K^T
-  constexpr int ND = DP / 8;         // n-tiles of the output
-  constexpr int NT = kMmaBK / 8;     // n-tiles of S
-  extern __shared__ uint4 smem16[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem16);
-  bf16* Ks = Qs + kMmaBQ * P;
-  bf16* Vs = Ks + kMmaBK * P;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qt = gridDim.x - 1 - blockIdx.x;    // heavy tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / G;
-  const int q0 = qt * kMmaBQ;
-  const int quad = lane >> 2, pair = (lane & 3) * 2;
-  const int row0 = q0 + warp * 16 + quad;       // this thread's rows:
-  const int row1 = row0 + 8;                    // row0 and row0 + 8
-
-  stage<DP>(Qs, q + b * st.qb + h * st.qh, st.qs, q0, S, d);
-  __syncthreads();
-  uint32_t qa[KS][4];                // A fragments of this warp's 16 rows
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* p0 = Qs + (warp * 16 + quad) * P + ks * 16 + pair;
-    qa[ks][0] = ld32(p0);
-    qa[ks][1] = ld32(p0 + 8 * P);
-    qa[ks][2] = ld32(p0 + 8);
-    qa[ks][3] = ld32(p0 + 8 * P + 8);
-  }
-
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const bf16* kb = k + b * st.kb + hk * st.kh;
-  const bf16* vb = v + b * st.vb + hk * st.vh;
-  int k_begin, k_end;
-  key_range(q0, kMmaBQ, S, causal, window, &k_begin, &k_end);
-  for (int k0 = (k_begin / kMmaBK) * kMmaBK; k0 < k_end; k0 += kMmaBK) {
-    __syncthreads();                 // previous tile fully consumed
-    stage<DP>(Ks, kb, st.ks, k0, S, d);
-    stage<DP>(Vs, vb, st.vs, k0, S, d);
-    __syncthreads();
-
-    // S = Q K^T: s[nt] holds keys nt*8 + pair + {0, 1} of row0 ([0], [1])
-    // and of row1 ([2], [3])
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kp = Ks + (nt * 8 + quad) * P + pair;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma(s[nt], qa[ks], ld32(kp + ks * 16), ld32(kp + ks * 16 + 8));
-    }
-
-    // scale, mask and the online softmax; each row lives in a quad
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = hr ? row1 : row0;
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + nt * 8 + pair + e;
-          float& x = s[nt][2 * hr + e];
-          x = keep(key, row, S, causal, window) ? x * scale : kNegInf;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float alpha = expf(m[hr] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][2 * hr + e];
-          x = expf(x - m_new);
-          ps += x;
-        }
-      l[hr] = alpha * l[hr] + ps;    // this lane's share; quad-summed last
-      m[hr] = m_new;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][2 * hr] *= alpha;
-        o[n][2 * hr + 1] *= alpha;
-      }
-    }
-
-    // O += P V over 4 k-steps of 16 keys; P = hi + lo, both bf16
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {  // A fragment f: n-tile 2kk + f/2,
-        const float* x = s[2 * kk + (f >> 1)] + 2 * (f & 1);  // row f&1
-        hi[f] = pack(x[0], x[1]);
-        const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(
-            &hi[f]);
-        lo[f] = pack(x[0] - __low2float(t), x[1] - __high2float(t));
-      }
-      const bf16* vp = Vs + (kk * 16 + (lane & 15)) * P + (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vp + n * 8);
-        mma(o[n], hi, vf[0], vf[1]);
-        mma(o[n], lo, vf[0], vf[1]);
-        mma(o[n + 1], hi, vf[2], vf[3]);
-        mma(o[n + 1], lo, vf[2], vf[3]);
-      }
-    }
-  }
-
-  bf16* ob = out + ((int64_t)b * S * Hq + h) * d;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float lt = l[hr];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const int row = hr ? row1 : row0;
-    if (row >= S) continue;
-    const float inv = 1.f / fmaxf(lt, 1e-30f);
-    bf16* orow = ob + (int64_t)row * Hq * d;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + pair + e;
-        if (c < d) orow[c] = __float2bfloat16(o[n][2 * hr + e] * inv);
-      }
-  }
-}
-
 // ------------------------------------- bf16, wgmma on TMA-fed tiles
 
 constexpr int kWgBQ = 128;           // query rows per block, 64 a consumer
@@ -731,6 +531,14 @@ constexpr int kWgThreads = 384;      // consumer warpgroups 0, 1; producer 2
 constexpr int kBoxCols = 64;         // bf16 columns of a TMA box: 128 bytes
 constexpr int kProducerRegs = 24;    // setmaxnreg: 128 x 24 + 256 x 240
 constexpr int kConsumerRegs = 240;   // = 64 512 of the SM's 65 536
+
+// p (two f32) as a bf16 pair, p[0] in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, f32 accumulators
 
 // shared memory, as byte offsets from a 1024-byte-aligned base: Q (all
 // boxes of the 128-row tile), then per stage a K tile and a V tile, then
@@ -1060,22 +868,6 @@ int launch_tf32x3(const float* q, const float* k, const float* v, float* out,
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                int B, int S, int Hq, int Hkv, int d, const Strides& st,
-                int causal, int window, cudaStream_t stream) {
-  static bool done = false;
-  auto kernel = flash_attention_mma_kernel<DP>;
-  constexpr int bytes = mma_smem_bytes<DP>();
-  const cudaError_t err = allow_smem(kernel, bytes, &done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kMmaBQ - 1) / kMmaBQ, Hq, B);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(
-      q, k, v, out, S, Hq, Hq / Hkv, d, st, causal, window,
-      (float)(1.0 / sqrt((double)d)));
-  return (int)cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled, a driver-API function, through the runtime's
 // driver entry point, so that the library links nothing beyond the
 // runtime (the card's machine may have no unversioned libcuda.so)
@@ -1162,9 +954,9 @@ Strides strides_of(const long long* s) {
 // launch was accepted). The caller guarantees: q (B, S, Hq, d), k and v
 // (B, S, Hkv, d) of one dtype on one device, unit stride in d, element
 // strides `strides` = (q: b, s, h; k: b, s, h; v: b, s, h), all >= 0;
-// 1 <= d <= 128; Hq % Hkv == 0; B, Hq <= 65535; S >= 1; window >= 0; out
-// a contiguous (B, S, Hq, d) buffer it allocated. For this f32 entry
-// (the split-TF32 kernel) also ceil(S / 128) * Hq * B < 2^31.
+// 1 <= d <= 128; Hq % Hkv == 0; S >= 1; window >= 0;
+// ceil(S / 128) * Hq * B < 2^31; out a contiguous (B, S, Hq, d) buffer it
+// allocated.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* out, int B, int S,
                                    int Hq, int Hkv, int d,
@@ -1182,27 +974,9 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                             window, s);
 }
 
-// The mma.sync kernel, for any bf16 layout the caller guarantees.
-extern "C" int flash_attention_bf16_mma(const bf16* q, const bf16* k,
-                                        const bf16* v, bf16* out, int B,
-                                        int S, int Hq, int Hkv, int d,
-                                        const long long* strides, int causal,
-                                        int window, void* stream) {
-  const Strides st = strides_of(strides);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 32)
-    return launch_mma<32>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
-                          window, s);
-  if (d <= 64)
-    return launch_mma<64>(q, k, v, out, B, S, Hq, Hkv, d, st, causal,
-                          window, s);
-  return launch_mma<128>(q, k, v, out, B, S, Hq, Hkv, d, st, causal, window,
-                         s);
-}
-
 // The wgmma kernel. The caller guarantees in addition: every base address
-// 16-byte aligned, every b, s, h stride of a dimension longer than 1 a
-// positive multiple of 8 elements, and ceil(S / 128) * Hq * B < 2^31.
+// 16-byte aligned and every b, s, h stride of a dimension longer than 1
+// a positive multiple of 8 elements.
 // Returns kErrNoEncoder or kErrTensorMap (negative) when the tensor maps
 // cannot be made.
 extern "C" int flash_attention_bf16_wgmma(const bf16* q, const bf16* k,

@@ -11,11 +11,13 @@ has q's dtype. The kernels are in ``csrc/flash_attention.cu`` (see its
 header for what bounds them on the card and how the design answers
 that), one per path that :func:`kernel_path` picks from the inputs:
 ``"wgmma"`` (bf16 whose layout TMA can read: warpgroup MMAs on tiles
-that TMA loads), ``"mma"`` (any other bf16 layout: mma.sync) and
+that TMA loads), ``"wgmma_staged"`` (any other bf16 layout: the same
+kernel on copies, :func:`tma_ready`, of the tensors TMA cannot read) and
 ``"tf32x3"`` (f32: mma.sync on TF32 operands split in two, three
-products a pair), all with f32 softmax statistics. They read
-the layout through its strides, so the reference's transposes and its
-padding of d and S exist nowhere here.
+products a pair), all with f32 softmax statistics. They read the layout
+through its strides, so the reference's transposes and its padding of S
+exist nowhere here; d is padded (to a multiple of 8, not of 128) only in
+the copies of ``"wgmma_staged"``.
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-PATHS = ("wgmma", "mma", "tf32x3")
+PATHS = ("wgmma", "wgmma_staged", "tf32x3")
 _ENTRIES = {"wgmma": "flash_attention_bf16_wgmma",
-            "mma": "flash_attention_bf16_mma",
+            "wgmma_staged": "flash_attention_bf16_wgmma",
             "tf32x3": "flash_attention_f32"}
 # host-side failures of the wgmma launch (negative return codes)
 _HOST_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
@@ -61,27 +63,47 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, Hq, d).to(q.dtype)
 
 
+def tma_reads(t: torch.Tensor) -> bool:
+    """Whether TMA can read the (B, S, H, d) tensor ``t`` through a tensor
+    map: its base address 16-byte aligned and each b, s, h stride of a
+    dimension longer than 1 a positive multiple of 16 bytes."""
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
+               for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it, else a copy that TMA can read: a
+    fresh (B, S, H, dp) buffer, dp = d rounded up to a multiple of 8,
+    holding ``t`` in its first d columns, returned as the view of those
+    columns (the tensor map is d wide, so the pad is never read). A
+    broadcast (stride 0) dimension is materialised."""
+    if tma_reads(t):
+        return t
+    B, S, H, d = t.shape
+    out = torch.empty((B, S, H, -(-d // 8) * 8), dtype=t.dtype,
+                      device=t.device)[..., :d]
+    return out.copy_(t)
+
+
 def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that :func:`flash_attention_cuda` launches for these
     inputs, from their dtype, shapes, strides and base addresses alone:
     ``"tf32x3"`` for f32; for bf16 ``"wgmma"`` when TMA can read all three
-    (each base address 16-byte aligned and each b, s, h stride of a
-    dimension longer than 1 a positive multiple of 16 bytes), else
-    ``"mma"``. Works on tensors on any device."""
+    (:func:`tma_reads`), else ``"wgmma_staged"`` (the same kernel on
+    :func:`tma_ready` copies of those it cannot read). Works on tensors on
+    any device."""
     if q.dtype != torch.bfloat16:
         return "tf32x3"
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            return "mma"
-        for n, st in zip(t.shape[:3], t.stride()[:3]):
-            if n > 1 and (st <= 0 or st * t.element_size() % 16):
-                return "mma"
-    return "wgmma"
+    if all(tma_reads(t) for t in (q, k, v)):
+        return "wgmma"
+    return "wgmma_staged"
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(path: str):
-    fn = getattr(build.library("flash_attention"), _ENTRIES[path])
+def _entry(name: str):
+    fn = getattr(build.library("flash_attention"), name)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
@@ -110,8 +132,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream. Takes q (B, S, Hq, d) and k, v (B, S, Hkv, d) on one CUDA
     device, all f32 or all bf16, unit stride in d, Hq % Hkv == 0 and
     d <= 128; raises on anything else and on a refused launch. Returns a
-    contiguous (B, S, Hq, d) tensor. Counts each launch in ``launches``
-    and in ``launches_by_path[path]``.
+    contiguous (B, S, Hq, d) tensor. On ``"wgmma_staged"`` it first
+    copies the inputs that TMA cannot read (:func:`tma_ready`), on the
+    same stream. Counts each launch in ``launches`` and in
+    ``launches_by_path[path]``.
 
     The kernel is forward only, as the reference's is (it has no
     ``custom_vjp``): under grad mode with any of q, k, v requiring grad
@@ -143,23 +167,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs unit stride in d, got "
                              f"{t.stride()}")
-    if B > 65535 or Hq > 65535 or window < 0:
-        raise ValueError(f"B={B}, Hq={Hq}, window={window} beyond the "
-                         "kernel's grid")
-    path = kernel_path(q, k, v)
-    if path != "mma" and -(-S // 128) * Hq * B >= 2 ** 31:
+    if window < 0:
+        raise ValueError(f"window={window} is negative")
+    if -(-S // 128) * Hq * B >= 2 ** 31:
         raise ValueError(f"B={B}, S={S}, Hq={Hq} beyond the kernel's grid")
+    path = kernel_path(q, k, v)
     out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if path == "wgmma_staged":
+        q, k, v = (tma_ready(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))
+    fn = _entry(_ENTRIES[path])
     with torch.cuda.device(q.device):
-        err = _entry(path)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), B, S, Hq, Hkv, d,
-                           ctypes.addressof(strides), int(bool(causal)),
-                           int(window),
-                           torch.cuda.current_stream().cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, Hq, Hkv, d, ctypes.addressof(strides),
+                 int(bool(causal)), int(window),
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         why = _HOST_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"flash_attention {path} kernel launch failed: "

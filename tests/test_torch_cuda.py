@@ -424,20 +424,176 @@ def test_flash_attention_wgmma_tile_edges(cuda, B, S, Hq, Hkv, d, window,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["d=20", "offset"])
-def test_flash_attention_unaligned_bf16_takes_mma(cuda, layout):
-    """Inputs TMA cannot read (a stride or base address off 16 bytes) take
-    the mma.sync kernel, chosen by the layout alone."""
+def test_flash_attention_unaligned_bf16_paths(cuda, layout):
+    """Inputs TMA cannot read (a stride or base address off 16 bytes)
+    take the wgmma kernel on copies that TMA can read, chosen by the
+    layout alone."""
     if layout == "d=20":                # h stride of 40 bytes
         q, k, v = _qkv(1, 150, 4, 2, 20, torch.bfloat16, cuda, seed=11)
     else:                               # base 2 bytes past an alignment
-        q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
-                   .view(t.shape) for t in _qkv(1, 150, 4, 2, 64,
-                                                torch.bfloat16, cuda,
-                                                seed=12))
-    got = _launch_checked(q, k, v, "mma", window=40)
+        q, k, v = (_offset_view(t, 1) for t in _qkv(
+            1, 150, 4, 2, 64, torch.bfloat16, cuda, seed=12))
+    got = _launch_checked(q, k, v, "wgmma_staged", window=40)
     ref = fa.flash_attention_ref(q, k, v, window=40)
     torch.testing.assert_close(got.float(), ref.float(),
                                **FA_TOL[torch.bfloat16])
+
+
+def _offset_view(t, n):
+    """A copy of ``t`` whose base lies ``n`` elements past its own
+    allocation's start (2n bytes past a 16-byte boundary in bf16)."""
+    flat = torch.cat([t.new_zeros(n), t.flatten()])
+    return flat[n:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("which", ["q", "k", "v", "qkv"])
+def test_flash_attention_offset_bases(cuda, which, off):
+    """A base 1-7 elements past a 16-byte boundary, on q, k or v alone or
+    on all three, takes the staged path, which copies only the tensors
+    moved and runs the wgmma kernel on the copies: the output is bit for
+    bit that of the same values at aligned bases, and within FA_TOL of
+    the plain version."""
+    qkv = _qkv(2, 200, 8, 2, 128, torch.bfloat16, cuda, seed=30 + off)
+    moved = [_offset_view(t, off) if name in which else t
+             for name, t in zip("qkv", qkv)]
+    for name, t in zip("qkv", moved):
+        assert t.data_ptr() % 16 == (2 * off if name in which else 0)
+    got = _launch_checked(*moved, "wgmma_staged", window=130)
+    want = _launch_checked(*qkv, "wgmma", window=130)
+    assert torch.equal(got, want)
+    ref = fa.flash_attention_ref(*qkv, window=130)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
+
+
+def _staged_qkv(B, S, Hq, Hkv, d, pad, seed):
+    """q, k, v as the first d columns of (B, S, H, d + pad) buffers. For
+    even d, pad 2 gives rows on every 4-byte boundary mod 16, pad 3 rows
+    on every 2-byte one; the staged path copies them into rows padded to
+    16 bytes, and TMA's zero fill then covers the pad columns."""
+    return tuple(t[..., :d] for t in _qkv(B, S, Hq, Hkv, d + pad,
+                                          torch.bfloat16, "cuda", seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,d,window,causal", [
+    (1, 1, 4, 2, 128, 0, True),        # one token
+    (2, 65, 8, 2, 72, 0, True),        # one past a consumer's 64 rows
+    (1, 129, 4, 1, 100, 0, True),      # one past a 128-row tile, G = 4
+    (1, 129, 4, 4, 20, 0, False),      # non-causal, G = 1
+    (1, 4095, 16, 1, 128, 0, True),    # one short of the prefill's S, G=16
+    (1, 300, 4, 2, 128, 1, True),      # window 1: each row sees itself
+    (1, 300, 4, 2, 72, 130, True),     # window across two key tiles
+    (1, 300, 16, 1, 100, 130, False),  # the same, non-causal, G = 16
+    (2, 129, 4, 4, 20, 1, False),      # window 1, non-causal
+])
+@pytest.mark.parametrize("pad", [2, 3])
+def test_flash_attention_staged_tile_edges(cuda, B, S, Hq, Hkv, d, window,
+                                           causal, pad):
+    q, k, v = _staged_qkv(B, S, Hq, Hkv, d, pad, seed=S + d)
+    got = _launch_checked(q, k, v, "wgmma_staged", causal=causal,
+                          window=window)
+    ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_staged_broadcast_batch(cuda, d):
+    """k and v shared by the batch (b stride 0, as ``expand`` gives): the
+    staged path's copies materialise the batch for TMA."""
+    q, k, v = _qkv(3, 200, 8, 2, d, torch.bfloat16, cuda, seed=40 + d)
+    k, v = (t[:1].expand_as(t) for t in (k, v))
+    assert k.stride(0) == 0
+    got = _launch_checked(q, k, v, "wgmma_staged", window=70)
+    ref = fa.flash_attention_ref(q, k, v, window=70)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **FA_TOL[torch.bfloat16])
+
+
+# the child of test_flash_attention_reads_no_byte_outside: each path on
+# tensors whose first or last element is the first or last one of its own
+# allocation (the caching allocator off, so an allocation is exactly its
+# bytes), where a read rounded out to 16 bytes would reach past it
+_MEMCHECK_CHILD = """
+import torch
+from repro_torch.kernels.flash_attention import ops as fa
+
+
+def alloc(shape, dtype, lead=0):
+    n = lead + torch.Size(shape).numel()
+    return torch.randn(n, device="cuda").to(dtype)[lead:].view(shape)
+
+
+bf = torch.bfloat16
+cases = {
+    "wgmma": [alloc((1, 130, 4, 64), bf)] + [alloc((1, 130, 2, 64), bf)] * 2,
+    "wgmma_staged offsets": [alloc((1, 130, 4, 64), bf, 3),
+                      alloc((1, 130, 2, 64), bf, 1),
+                      alloc((1, 130, 2, 64), bf, 7)],
+    "wgmma_staged": [alloc((1, 67, 3, 21), bf, 1), alloc((1, 67, 1, 21), bf),
+                     alloc((1, 67, 1, 23), bf, 5)[..., :21]],
+    "wgmma_staged d=128": [alloc((1, 130, 2, 131), bf)[..., 3:]]
+    + [alloc((1, 130, 1, 128), bf, 1)] * 2,
+    "wgmma_staged copies": [alloc((1, 67, 3, 22), bf, 2),
+                            alloc((1, 67, 1, 22), bf),
+                            alloc((1, 67, 1, 26), bf, 4)[..., :22]],
+    "tf32x3": [alloc((1, 67, 3, 21), torch.float32, 1),
+               alloc((1, 67, 1, 21), torch.float32),
+               alloc((1, 67, 1, 21), torch.float32, 3)],
+}
+for name, (q, k, v) in cases.items():
+    got = fa.flash_attention(q, k, v, window=40)
+    ref = fa.flash_attention_ref(q, k, v, window=40)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    print(name, fa.kernel_path(q, k, v), err, flush=True)
+    assert err < 0.05, (name, err)
+print(fa.flash_attention_cuda.launches_by_path)
+"""
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_no_byte_outside(cuda):
+    """Every path under compute-sanitizer's memcheck, in a child process
+    with PyTorch's caching allocator off: a read past a tensor's exact
+    allocation (a load rounded out to 16 bytes across its first or last
+    element) is an error there. Skips where compute-sanitizer cannot run on the card (it
+    refuses some machines' devices as unsupported)."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("compute-sanitizer")
+    tool = str(tool) if tool.exists() else shutil.which("compute-sanitizer")
+    assert tool, "compute-sanitizer not found beside nvcc or on PATH"
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    memcheck = [tool, "--tool", "memcheck", "--error-exitcode", "1",
+                sys.executable, "-c"]
+    probe = subprocess.run(
+        memcheck + ["import torch; torch.ones(1, device='cuda').sum()"],
+        env=env, capture_output=True, text=True, timeout=300)
+    refused = [line for line in (probe.stdout + probe.stderr).splitlines()
+               if "Device not supported" in line]
+    if refused:
+        pytest.skip("compute-sanitizer cannot run on this machine's card: "
+                    + refused[0].strip("= ")[:200])
+    assert probe.returncode == 0, (probe.stdout + probe.stderr)[-3000:]
+    build.build(["flash_attention"])   # the child only loads it
+    run = subprocess.run(memcheck + [_MEMCHECK_CHILD], env=env,
+                         capture_output=True, text=True, timeout=900)
+    out = run.stdout + run.stderr
+    assert run.returncode == 0, out[:3000] + out[-3000:]
+    assert "ERROR SUMMARY: 0 errors" in out, out[-3000:]
+    for path in fa.PATHS:
+        assert f"'{path}': 0" not in out, out[-3000:]
 
 
 @pytest.mark.cuda

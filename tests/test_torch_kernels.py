@@ -279,6 +279,12 @@ def _zeros(shape, dtype=torch.bfloat16):
     return torch.zeros(shape, dtype=dtype)
 
 
+def _off(shape, n):
+    """A bf16 zero tensor of ``shape`` whose base lies ``n`` elements past
+    its storage's start (a view at an odd offset: 2n bytes off 16)."""
+    return _zeros((math.prod(shape) + n,))[n:].view(shape)
+
+
 _PATH_CASES = {
     # name: (q, k, v builder, the kernel flash_attention_cuda launches)
     "f32": (lambda: [_zeros((1, 8, 4, 64), torch.float32)] * 3, "tf32x3"),
@@ -289,20 +295,38 @@ _PATH_CASES = {
         lambda: [_zeros((2, 8, h, 96))[..., :48] for h in (4, 2, 2)],
         "wgmma"),
     "bf16 d=16": (lambda: [_zeros((2, 8, 4, 16))] * 3, "wgmma"),
-    "bf16 d=20": (lambda: [_zeros((2, 8, 4, 20))] * 3, "mma"),
+    "bf16 d=20": (lambda: [_zeros((2, 8, 4, 20))] * 3, "wgmma_staged"),
     "bf16 base off by one element": (
         lambda: [_zeros((1, 8, 2, 64))] * 2
-        + [_zeros((1 * 8 * 2 * 64 + 1,))[1:].view(1, 8, 2, 64)], "mma"),
+        + [_zeros((1 * 8 * 2 * 64 + 1,))[1:].view(1, 8, 2, 64)],
+        "wgmma_staged"),
     "bf16 heads-major layout": (
         lambda: [_zeros((2, 4, 8, 64)).transpose(1, 2)] * 3, "wgmma"),
     "bf16 broadcast batch": (
         lambda: [_zeros((2, 8, 2, 64)), _zeros((1, 8, 2, 64)).expand(
-            2, 8, 2, 64), _zeros((2, 8, 2, 64))], "mma"),
+            2, 8, 2, 64), _zeros((2, 8, 2, 64))], "wgmma_staged"),
     "bf16 size-1 dims at any stride": (
         lambda: [_zeros((64 * 8,)).as_strided((1, 8, 1, 64), (3, 64, 5, 1))]
         * 3, "wgmma"),
-    "bf16 s stride of 8 bytes": (lambda: [_zeros((1, 8, 1, 4))] * 3, "mma"),
+    "bf16 s stride of 8 bytes": (lambda: [_zeros((1, 8, 1, 4))] * 3,
+                                 "wgmma_staged"),
+    "bf16 d=128 slice of d=132": (
+        lambda: [_zeros((2, 8, h, 132))[..., :128] for h in (4, 2, 2)],
+        "wgmma_staged"),
+    "bf16 base off and d=20": (
+        lambda: [_off((1, 8, 2, 20), 3)] * 3, "wgmma_staged"),
 }
+# a base 1-7 elements off on q, k or v alone, or on all three, strides
+# that TMA reads: TMA cannot start there, the staged path copies it
+for _n in range(1, 8):
+    for _i, _which in enumerate("qkv"):
+        _PATH_CASES[f"bf16 {_which} base off by {_n}"] = (
+            lambda n=_n, i=_i: [
+                _off((1, 8, 2, 64), n) if j == i else _zeros((1, 8, 2, 64))
+                for j in range(3)], "wgmma_staged")
+    _PATH_CASES[f"bf16 q, k, v bases off by {_n}"] = (
+        lambda n=_n: [_off((2, 8, h, 128), n) for h in (4, 2, 2)],
+        "wgmma_staged")
 
 
 @pytest.mark.parametrize("name", sorted(_PATH_CASES))
@@ -311,6 +335,30 @@ def test_flash_attention_path_choice(name):
     and base addresses alone, so it is decided here on CPU tensors."""
     make, want = _PATH_CASES[name]
     assert fa.kernel_path(*make()) == want
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (_, path) in _PATH_CASES.items() if path == "wgmma_staged"))
+def test_flash_attention_staged_copies(name):
+    """What the ``wgmma_staged`` path hands the wgmma kernel, built here
+    on CPU tensors: :func:`tma_ready` copies exactly the tensors that TMA
+    cannot read, each copy holds the same values, TMA can read every
+    copy (so the launch is the TMA kernel's), and the tensor map over
+    each, (d, H, S, B) at its strides, lies inside the copy's own
+    buffer: the kernel reads no byte outside a tensor it is given."""
+    qkv = _PATH_CASES[name][0]()
+    gen = torch.Generator().manual_seed(7)
+    for t in qkv:                       # random values, views kept
+        flat = torch.empty(0, dtype=t.dtype).set_(t.untyped_storage())
+        flat.copy_(torch.randn(flat.shape, generator=gen))
+    ready = [fa.tma_ready(t) for t in qkv]
+    assert fa.kernel_path(*ready) == "wgmma"
+    for t, r in zip(qkv, ready):
+        assert (r is t) == fa.tma_reads(t)
+        assert fa.tma_reads(r) and torch.equal(r, t)
+        last = r.storage_offset() + sum((n - 1) * st for n, st
+                                        in zip(r.shape, r.stride()))
+        assert last < r.untyped_storage().nbytes() // r.element_size()
 
 
 @pytest.mark.parametrize("N,K,P,sms", [

@@ -107,6 +107,45 @@ def test_flash_attention_plain_matches_reference(B, S, Hq, Hkv, d, window,
                                    atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("layout", ["offset view", "132-wide slice"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_unaligned_layouts_match_reference(layout, dtype):
+    """The port's plain version on views whose base lies one element past
+    their storage's start, and on d = 128 cut out of (B, S, H, 132)
+    buffers (layouts that the CUDA dispatcher sends to ``wgmma_staged``),
+    and on the copies that path hands the kernel (``tma_ready``), against
+    the reference's Pallas kernel in interpret mode on the same values;
+    the tolerances above. On the CPU no kernel runs: the kernel is held
+    to the plain version on these layouts by the card tests."""
+    B, S, Hq, Hkv, d, window = 1, 128, 4, 2, 128, 50
+    rng = np.random.default_rng(17)
+    tdt = getattr(torch, dtype)
+    views = []
+    for h in (Hq, Hkv, Hkv):
+        if layout == "offset view":
+            a = rng.standard_normal(B * S * h * d + 1).astype(np.float32)
+            t = torch.from_numpy(a).to(tdt)[1:].view(B, S, h, d)
+            assert t.data_ptr() % 16 == t.element_size()
+        else:
+            a = rng.standard_normal((B, S, h, 132)).astype(np.float32)
+            t = torch.from_numpy(a).to(tdt)[..., :d]
+            assert t.stride(2) == 132
+        views.append(t)
+    want_path = "tf32x3" if dtype == "float32" else "wgmma_staged"
+    assert fa.kernel_path(*views) == want_path
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(dtype)
+                  for t in views)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
+                                  interpret=True)
+    tol = 2e-5 if dtype == "float32" else 0.03
+    copies = [fa.tma_ready(t) for t in views]
+    for inputs in (views, copies):
+        got = fa.flash_attention(*inputs, causal=True, window=window)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=tol,
+                                   rtol=tol)
+
+
 # ---------------------------------------------------------------- layers
 
 def test_layers_match_reference():
