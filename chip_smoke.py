@@ -241,6 +241,36 @@ drawn on the card from a seed, bf16 compute):
    e. with two or more cards, two ranks (``--steps-child``) on a (1, 2)
       NCCL mesh: chatglm3's smoke train step and kernel prefill against
       one rank's; with one card a line says that they were not run.
+17. The examples and the dry run. The dry runs of b and c start first,
+   each a process of its own on the host (a ``fake`` group must not meet
+   phase 16's NCCL group; they need no card), and run while a does:
+   a. the examples on the card, through their ``main``, each with the
+      launch counters zeroed before and checked after and its lap
+      printed: ``quickstart_torch`` at full size (40 devices, IKC K=10,
+      up to 6 rounds: K1 Q + 1 = 6 a round run, K2 480);
+      ``assignment_demo_torch --H 20`` (geo's and HFEL-100/300's J
+      printed, HFEL's at most geo's; no launch);
+      ``train_hfl_e2e_torch`` with E2E_ARGS, a depth cut (2 of 8 rounds,
+      8 of 80 D3QN episodes: K1 6 a round of both frameworks, K2 480);
+      ``model_zoo_launcher_torch --smoke`` (K1 or, for the int8 and
+      top-k jobs, K4 ceil(n/64) launches a hop over a payload's n
+      leaves, K2 480 for the IKC job). Over these four, every launch of
+      K1/K4 and every K2 call is held against its plain version on the
+      same inputs at phase 2's tolerances (``HeldToPlain``), every
+      counted launch must have been held, and the aggregation launches
+      are tallied by entry: K4's int8 launches must be the int8 job's
+      and its f32 launches the top-k job's. Then
+      ``serve_demo_torch --smoke``: the serve CLI in a process of its
+      own on the card, whose launches are not counted;
+   b. ``python -m repro_torch.launch.dryrun`` at full width: chatglm3-6b
+      x train_4k on 16x16 (256 fake ranks) and ``--hfl-step`` on
+      2x16x16 (512): each record's per-rank argument, output and temp
+      bytes, flops and collectives printed; the HFL step must all-reduce
+      over ``pod``;
+   c. the dry run of phase 16c's train step on a one-rank fake group
+      (``--dryrun-child``): its argument bytes must equal what 16c held
+      on the card (params, moments, batch), and its predicted peak
+      (argument + temp bytes) is printed beside 16c's measured peak.
 Each phase prints its peak device memory.
 
 The line before the last is a JSON object with one entry per kernel
@@ -250,7 +280,9 @@ also carry the sweep's edge hop and their launches in phases 7a and 7e,
 K1's the sweep's figures; K1's and K2's the launches of phase 13 by
 arch; K5's the launches of phases 14 and 15 and the f32 path's row;
 K1's, K2's and K5's the launches of phase 16, whose K5 launches also
-count in K5's ``launches``); the last
+count in K5's ``launches``; K1's, K2's and int8 and f32 K4's those of
+phase 17a, K4's by the entry launched; each ``max_abs_err`` also covers
+phase 17a's launches); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -258,6 +290,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -408,6 +441,11 @@ SMOKE_LR = 1e-3
 # the accuracy tolerance of tests/test_sweep_shard.py ("a couple of test
 # samples"; costs rtol 1e-4, atol 1e-6)
 MESH_LANES, SHARD_ACC_SAMPLES = 3, 2
+# phase 17: train_hfl_e2e_torch cut in depth (its defaults: 8 rounds, 80
+# D3QN episodes); the dry runs of 17b, each a process: (tag, CLI flags)
+E2E_ARGS = ["--rounds", "2", "--episodes", "8"]
+DRYRUNS = (("train", ["--arch", LM_ARCH, "--shape", "train_4k"]),
+           ("hfl", ["--hfl-step", "--arch", LM_ARCH]))
 
 
 def check(cond, msg):
@@ -2513,6 +2551,7 @@ def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
     from repro_torch.data import token_batch_iterator
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import steps as S
+    from repro_torch.launch.dryrun import tree_local_bytes
     from repro_torch.launch.mesh import make_debug_mesh, sweep_mesh
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as shd
@@ -2640,6 +2679,10 @@ def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
         dbatch = S.shard_tree(batch, S.input_shardings(batch, dmesh))
         mstep, mopt = S.make_train_step(cfg, mesh=dmesh, lr=TRAIN_LR)
         state = mopt.init(params)
+        # what the step's arguments hold on the card (phase 17c's account)
+        held = {k: tree_local_bytes(v) for k, v in
+                (("params", params), ("opt_state", state),
+                 ("batch", dbatch))}
         # each step's result rebinds the params and moments, as in 15a
         (params, state, m2), first = timed(
             torch, lambda: mstep(params, state, dbatch))
@@ -2673,7 +2716,8 @@ def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
         check(all(isinstance(x, torch.distributed.tensor.DTensor)
                   for x in tree_leaves(p2)), "16c: params left the mesh")
         out.update(c_step_s=wall, c_tok_s=tokens / wall, c_peak_gb=peak,
-                   c_resident_gb=resident, c_loss_gap=abs(l2 - l1),
+                   c_held=held, c_resident_gb=resident,
+                   c_loss_gap=abs(l2 - l1),
                    c_worst_lr=worst, c_far=far, c_first_s=first)
         del params, p2, state, m2, dbatch
         torch.cuda.empty_cache()
@@ -2735,6 +2779,328 @@ def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
         check(abs(l2 - l1) <= 1e-5 * abs(l1) and got["worst_lr"] <= 2
               and diff <= LM_F32_TOL * scale, "16e: 2-card steps differ")
         out["e"] = "run"
+    return out
+
+
+# ------------------------------------------------------------ phase 17
+
+def example(name: str):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dryrun_child(out: str) -> None:
+    """Phase 17c's dry run: phase 16c's train step (chatglm3-6b at full
+    width, TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ, adam) on a
+    one-rank ``make_debug_mesh`` over a one-rank fake group."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    with D.fake_group(1):
+        rec = D.dryrun_step(
+            cfg, InputShape("train_16c", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            make_debug_mesh(device_type="cpu"))
+    rec["cuda_initialized"] = torch.cuda.is_initialized()
+    with open(os.path.join(out, "dryrun_16c.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def start_dryruns(out: str) -> dict:
+    """Phase 17b/c's dry runs, each in its own process (a fake group must
+    not meet phase 16's NCCL group), on the host while 17a runs."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    cmds = {tag: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                  *flags, "--out", os.path.join(out, f"{tag}.json")]
+            for tag, flags in DRYRUNS}
+    cmds["16c"] = [sys.executable, str(Path(__file__).resolve()),
+                   "--dryrun-child", out]
+    return {tag: (subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT),
+                  time.perf_counter()) for tag, cmd in cmds.items()}
+
+
+def wait_dryrun(procs: dict, tag: str, timeout: float = 900):
+    """(exit code, seconds from start, output tail) of one dry run."""
+    p, t0 = procs[tag]
+    log = p.communicate(timeout=timeout)[0].decode()
+    return p.returncode, time.perf_counter() - t0, log[-3000:]
+
+
+def dry_summary(rec: dict) -> str:
+    m, c = rec["memory"], rec["collectives"]
+    cols = ", ".join(f"{k} {v['count']} x / {v['bytes']:,} B {v['by_axis']}"
+                     for k, v in c.items() if v["count"])
+    return (f"per rank: arguments {m['argument_bytes']:,} B "
+            f"{m['argument_parts']}, outputs {m['output_bytes']:,} B, temp "
+            f"{m['temp_bytes']:,} B, flops {rec['cost']['flops']:.4e}; "
+            f"collectives: {cols}; traced in {rec['trace_s']} s")
+
+
+class HeldToPlain:
+    """Phase 17a's witness of the kernels' outputs. While it is on, every
+    launch of the aggregation kernels (``hier_agg.ops._launch``: K1, K3,
+    K4) and every K2 call of the clustering (``clustering._kernel``) is
+    held against its plain version on the same inputs at phase 2's
+    tolerances, and the aggregation launches are tallied by entry, so
+    K4's by the q dtype it read. The plain versions launch nothing."""
+
+    def __init__(self, torch):
+        from repro_torch.core import clustering
+        from repro_torch.kernels.hier_agg import ops as ha
+        from repro_torch.kernels.kmeans_dist import ops as kd
+        self.torch, self.ha, self.kd, self.cl = torch, ha, kd, clustering
+        self.entries, self.err, self.k2_calls = {}, {}, 0
+
+    def __enter__(self):
+        self._launch, self._k2 = self.ha._launch, self.cl._kernel
+        self.ha._launch, self.cl._kernel = self.launch, self.k2
+        return self
+
+    def __exit__(self, *exc):
+        self.ha._launch, self.cl._kernel = self._launch, self._k2
+
+    def reset(self):
+        self.entries, self.k2_calls = {}, 0
+
+    def _hold(self, name, got, ref, tol):
+        d = (got - ref).abs()
+        err = float(d.max()) if d.numel() else 0.0
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        check(bool((d <= tol).all()), f"17a {name}: a launch differs from "
+              f"its plain version (max_abs_err {err:.3e})")
+
+    def launch(self, name, head, leaves, scales, dtype, counter):
+        n0 = counter.launches
+        outs = self._launch(name, head, leaves, scales, dtype, counter)
+        self.entries[name] = self.entries.get(name, 0) + counter.launches - n0
+        ha = self.ha
+        for i, (x, got) in enumerate(zip(leaves, outs)):
+            if "weights" in head:
+                ref = ha.weighted_aggregate_batched_ref(head["weights"], x)
+            elif scales is None:
+                ref = ha.masked_aggregate_batched_ref(head["mask"],
+                                                      head["sizes"], x)
+            else:
+                ref = ha.masked_decode_aggregate_batched_ref(
+                    head["mask"], head["sizes"], scales[i], x)
+            self._hold(name, got, ref, AGG_TOL * (1 + ref.abs()))
+        return outs
+
+    def k2(self, x, c):
+        got = self._k2(x, c)
+        if got.is_cuda:
+            self.k2_calls += 1
+            ref = self.kd.pairwise_sq_dists_ref(x.float(), c.float())
+            self._hold("pairwise_sq_dists_f32", got, ref,
+                       DIST_TOL * (ref.abs().max() + ref.abs()))
+        return got
+
+    def read(self, label, got, want):
+        """Check that every launch of ``got`` (the counters' reading) was
+        held, and the tally by entry against ``want``."""
+        print(f"{label} held to plain: launches by entry {self.entries}, "
+              f"K2 calls {self.k2_calls}; max_abs_err so far "
+              f"{ {k: f'{v:.3e}' for k, v in self.err.items()} }")
+        check(sum(self.entries.values()) == got["masked_aggregate"]
+              + got["masked_decode_aggregate"] + got["weighted_aggregate"]
+              and self.k2_calls == got["pairwise_sq_dists"],
+              f"{label}: a launch went unheld")
+        check({k: v for k, v in self.entries.items() if v} == want,
+              f"{label}: launches by entry {self.entries}, expected {want}")
+
+
+# the aggregation kernel's entry that each uplink codec's wire dtype takes
+CODEC_ENTRY = {"none": "masked_aggregate_f32",
+               "bf16_delta": "masked_decode_aggregate_bf16",
+               "int8": "masked_decode_aggregate_i8",
+               "topk": "masked_decode_aggregate_f32"}
+# a kernel entry's key in the result line, where the two differ
+ENTRY_KEY = {"masked_aggregate_f32": "masked_aggregate",
+             "weighted_aggregate_f32": "weighted_aggregate",
+             "pairwise_sq_dists_f32": "pairwise_sq_dists"}
+
+
+def example_phase(torch, mesh16, zero_counts, read_counts):
+    """Phase 17: the examples on the card, the dry run at full width and
+    its memory account against phase 16c (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.cost_model import SystemParams
+    from repro_torch.kernels.hier_agg.ops import LEAF_CAPACITY
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
+    procs = start_dryruns(tmp)
+    out = {"laps": {}, "k4": {}}
+    per_round = SystemParams().Q + 1
+    witness = HeldToPlain(torch)
+
+    def clustering(K):            # K2: 8 restarts x (K-1 + 50 + 1) passes
+        return 8 * ((K - 1) + 50 + 1)
+
+    def start():
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        witness.reset()
+        return time.perf_counter()
+
+    def lap(tag, t0):
+        out["laps"][tag] = time.perf_counter() - t0
+        print(f"17a {tag}: {out['laps'][tag]:.1f} s, peak memory "
+              f"{peak_gb(torch)}")
+
+    try:
+        # ---- a. the examples on the card
+        with witness:
+            t0 = start()
+            qs = example("quickstart_torch").main([])
+            label = f"17a quickstart_torch ({qs['iters']} rounds)"
+            got = read_counts(label, {
+                "masked_aggregate": (qs["Q"] + 1) * qs["iters"],
+                "pairwise_sq_dists": clustering(qs["K"])})
+            witness.read(label, got, {"masked_aggregate_f32":
+                                      got["masked_aggregate"]})
+            check(np.isfinite(qs["objective"])
+                  and 0 <= qs["final_acc"] <= 1,
+                  "17a quickstart: a summary out of range")
+            out["k1"] = got["masked_aggregate"]
+            out["k2"] = got["pairwise_sq_dists"]
+            lap("quickstart_torch", t0)
+
+            t0 = start()
+            ad = example("assignment_demo_torch").main(["--H", "20"])
+            got = read_counts("17a assignment_demo_torch", {})
+            witness.read("17a assignment_demo_torch", got, {})
+            objs = {k: v["obj"] for k, v in ad.items()}
+            lat = {k: round(v["latency_s"], 3) for k, v in ad.items()}
+            print(f"17a assignment_demo_torch H=20: J {objs}; search "
+                  f"latency {lat} s")
+            check(all(objs[k] <= objs["geo"]
+                      for k in ("hfel-100", "hfel-300")),
+                  f"17a: HFEL's J above geo's: {objs}")
+            out["assignment_J"] = objs
+            lap("assignment_demo_torch", t0)
+
+            t0 = start()
+            e2e = example("train_hfl_e2e_torch").main(E2E_ARGS)
+            iters = {k: v["iters"] for k, v in e2e["results"].items()}
+            label = (f"17a train_hfl_e2e_torch {' '.join(E2E_ARGS)} "
+                     f"(rounds {iters})")
+            got = read_counts(label, {
+                "masked_aggregate": (e2e["Q"] + 1) * sum(iters.values()),
+                "pairwise_sq_dists": clustering(10)})
+            witness.read(label, got, {"masked_aggregate_f32":
+                                      got["masked_aggregate"]})
+            out["k1"] += got["masked_aggregate"]
+            out["k2"] += got["pairwise_sq_dists"]
+            out["e2e"] = {k: {"iters": v["iters"],
+                              "final_acc": v["final_acc"],
+                              "objective": v["objective"]}
+                          for k, v in e2e["results"].items()}
+            lap("train_hfl_e2e_torch", t0)
+
+            t0 = start()
+            recs = example("model_zoo_launcher_torch").main(
+                ["--smoke", "--out", os.path.join(tmp, "zoo.jsonl")])
+            want = {"masked_aggregate": 0, "masked_decode_aggregate": 0,
+                    "pairwise_sq_dists": 0}
+            by_entry = {}
+            for r in recs:
+                n = (r["rounds"] * per_round
+                     * -(-r["n_leaves"] // LEAF_CAPACITY))
+                want["masked_aggregate" if r["codec"] == "none"
+                     else "masked_decode_aggregate"] += n
+                entry = CODEC_ENTRY[r["codec"]]
+                by_entry[entry] = by_entry.get(entry, 0) + n
+                if r["scheduler"] in ("ikc", "vkc"):
+                    want["pairwise_sq_dists"] += clustering(10)
+            label = (f"17a model_zoo_launcher_torch --smoke ({len(recs)} "
+                     f"jobs)")
+            got = read_counts(label, want)
+            witness.read(label, got, by_entry)
+            out["k1"] += got["masked_aggregate"]
+            out["k2"] += got["pairwise_sq_dists"]
+            out["k4"] = {k: v for k, v in witness.entries.items()
+                         if k.startswith("masked_decode")}
+            for r in recs:
+                print(f"  {r['run_name']}: {r['n_leaves']} leaves, acc "
+                      f"{r['final_acc']:.3f}, T {r['T_total']:.1f} s, E "
+                      f"{r['E_total']:.1f} J, uplink "
+                      f"{r['uplink_bits_per_msg']:.0f} b, "
+                      f"{r['wall_s']:.2f} s")
+            lap("model_zoo_launcher_torch", t0)
+
+        out["held_err"] = dict(witness.err)
+
+        # the serve CLI runs in a process of its own: its launches are
+        # not counted here
+        t0 = start()
+        ran = example("serve_demo_torch").main(["--smoke"])
+        check(len(ran) == 1, "17a serve demo")
+        lap("serve_demo_torch", t0)
+
+        # ---- b. the dry run at full width
+        for tag, _ in DRYRUNS:
+            code, secs, log = wait_dryrun(procs, tag)
+            check(code == 0, f"17b {tag}: exit {code}\n{log}")
+            with open(os.path.join(tmp, f"{tag}.json")) as f:
+                (rec,) = json.load(f)
+            check("error" not in rec and all(
+                k in rec for k in ("memory", "cost", "collectives")),
+                f"17b {tag}: {rec.get('error')}")
+            print(f"17b dry run {rec['arch']} x {rec['shape']} on "
+                  f"{rec['mesh']} ({secs:.1f} s with the process): "
+                  + dry_summary(rec))
+            check(rec["collectives"]["all-gather"]["count"] > 0,
+                  f"17b {tag}: no all-gather")
+            out[f"dry_{tag}"] = {"memory": rec["memory"],
+                                 "flops": rec["cost"]["flops"],
+                                 "collectives": rec["collectives"],
+                                 "trace_s": rec["trace_s"], "wall_s": secs}
+        check(out["dry_hfl"]["collectives"]["all-reduce"]["by_axis"]
+              .get("pod", 0) > 0, "17b: the HFL step has no pod all-reduce")
+
+        # ---- c. the memory account against the card (phase 16c)
+        code, secs, log = wait_dryrun(procs, "16c")
+        check(code == 0, f"17c: exit {code}\n{log}")
+        with open(os.path.join(tmp, "dryrun_16c.json")) as f:
+            rec = json.load(f)
+        check(not rec["cuda_initialized"], "17c: the dry run used the card")
+        held = mesh16["c_held"]
+        mem = rec["memory"]
+        pred = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e9
+        peak, resident = mesh16["c_peak_gb"], mesh16["c_resident_gb"]
+        print(f"17c dry run of 16c's step ({secs:.1f} s with the process): "
+              + dry_summary(rec))
+        print(f"17c argument bytes: dry run {mem['argument_parts']} = "
+              f"{mem['argument_bytes']:,} vs held on the card in 16c "
+              f"{held} = {sum(held.values()):,}; predicted peak "
+              f"(arguments + temp) {pred:.3f} GB vs 16c's measured peak "
+              f"{peak:.3f} GB ({resident:.3f} GB resident before): ratio "
+              f"{pred / peak:.4f} (to the peak less the resident: "
+              f"{pred / (peak - resident):.4f}); no bound set")
+        check(mem["argument_parts"] == held,
+              f"17c: argument bytes {mem['argument_parts']} vs {held}")
+        out["c"] = {"argument_bytes": mem["argument_bytes"],
+                    "temp_bytes": mem["temp_bytes"], "predicted_gb": pred,
+                    "peak_gb": peak, "resident_gb": resident,
+                    "ratio": pred / peak}
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3039,6 +3405,15 @@ def main() -> int:
     print(f"mesh phase: {mesh['phase_s']:.1f} s; " + json.dumps(mesh))
     launches["flash_attention"] += mesh["d_k5"]
 
+    # --------------------- examples and the dry run (phase 17)
+    t0 = time.perf_counter()
+    ex = example_phase(torch, mesh, zero_counts, read_counts)
+    ex["phase_s"] = time.perf_counter() - t0
+    for entry, err in ex["held_err"].items():     # 17a's launches
+        key = ENTRY_KEY.get(entry, entry)
+        kres[key]["err"] = max(kres[key]["err"], err)
+    print(f"example phase: {ex['phase_s']:.1f} s; " + json.dumps(ex))
+
     # ----------------------------------------------------------- result
     src = "src/repro_torch/csrc/hier_agg.cu"
     hier = "src/repro/kernels/hier_agg/hier_agg.py"
@@ -3079,8 +3454,14 @@ def main() -> int:
     extra["masked_aggregate"]["sweep"] = sweep
     extra["masked_aggregate"]["seq_payload_launches"] = seq["k1"]
     extra["masked_aggregate"]["mesh_launches"] = mesh["a_k1"]
+    extra["masked_aggregate"]["example_launches"] = ex["k1"]
     extra["pairwise_sq_dists"] = {"seq_payload_launches": seq["k2"],
-                                  "mesh_launches": mesh["a_k2"]}
+                                  "mesh_launches": mesh["a_k2"],
+                                  "example_launches": ex["k2"]}
+    extra["masked_decode_aggregate_i8"]["example_launches"] = \
+        ex["k4"].get("masked_decode_aggregate_i8", 0)
+    extra["masked_decode_aggregate_f32"] = {
+        "example_launches": ex["k4"].get("masked_decode_aggregate_f32", 0)}
     extra["flash_attention"] = {
         "mesh_launches": mesh["d_k5"],
         "zoo_launches": zoo["flash_attention"],
@@ -3120,6 +3501,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-child":
+        dryrun_child(sys.argv[2])
+        sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] in ("--lanes-child",
                                               "--steps-child"):
         {"--lanes-child": lanes_child, "--steps-child": steps_child}[

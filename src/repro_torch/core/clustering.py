@@ -38,7 +38,9 @@ def kmeans_pp_indices(x: torch.Tensor, k: int, generator: torch.Generator,
     probability proportional to the squared distance to the nearest
     centre chosen so far. Draws use ``generator`` (a CPU generator).
     Like the reference, each pass measures against all k centre slots
-    and masks the ones not chosen yet."""
+    and masks the ones not chosen yet. Once every row lies on a chosen
+    centre (k above the number of distinct rows) the rest are row 0,
+    as ``jax.random.choice`` picks from an all-zero distribution."""
     n = x.shape[0]
     idx = [int(torch.randint(0, n, (), generator=generator))]
     centers = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
@@ -48,7 +50,8 @@ def kmeans_pp_indices(x: torch.Tensor, k: int, generator: torch.Generator,
         mind = torch.min(d[:, :i], dim=1).values
         probs = (mind / torch.clamp_min(torch.sum(mind), 1e-12)).cpu()
         idx.append(int(torch.multinomial(probs.double(), 1,
-                                         generator=generator)))
+                                         generator=generator))
+                   if bool(probs.sum() > 0) else 0)
         centers[i] = x[idx[i]]
     return torch.tensor(idx, dtype=torch.int64)
 

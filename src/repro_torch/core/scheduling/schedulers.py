@@ -1,11 +1,15 @@
 """Device scheduling policies: FedAvg-random, VKC (Alg. 3), IKC (Alg. 4).
 
-A numpy copy of ``repro.core.scheduling.schedulers``' vectorized engines
-(``FedAvgScheduler``, ``VKCScheduler``, ``IKCScheduler`` over the CSR
-``_ClusterState``), so the same rng and labels give identical cohorts in
-both packages, the IKC top-up rule included: devices scheduled by top-up
-are recorded into their cluster's rotation set, so no device repeats
-before its cluster-mates were scheduled once.
+A numpy copy of ``repro.core.scheduling.schedulers``: the vectorized
+engines (``FedAvgScheduler``, ``VKCScheduler``, ``IKCScheduler`` over the
+CSR ``_ClusterState``) and the serial list-based oracles
+(``SerialFedAvgScheduler``, ``SerialVKCScheduler``,
+``SerialIKCScheduler``), so the same rng and labels give identical
+cohorts in both packages, the IKC top-up rule included: devices
+scheduled by top-up are recorded into their cluster's rotation set, so
+no device repeats before its cluster-mates were scheduled once. The
+serial engines are the distribution oracles of the vectorized ones
+(``tests/test_torch_serial_sched.py``).
 
 All schedulers expose ``schedule(rng) -> np.ndarray[H]`` of device
 indices and ``topup_to(selected, target, rng)`` (Alg. 3 lines 12-15 /
@@ -42,13 +46,136 @@ class Scheduler:
 def _topup(selected: List[int], n_devices: int, target: int, rng
            ) -> List[int]:
     """Alg.3 lines 12-15 / Alg.4 lines 21-24: random devices from the
-    unscheduled pool until |H_i| == target. O(N) setdiff — the base
-    class's path; the vectorized schedulers use ``_sample_excluding``."""
+    unscheduled pool until |H_i| == target. O(N) setdiff — the serial
+    oracles' path; the vectorized schedulers use ``_sample_excluding``."""
     if len(selected) < target:
         pool = np.setdiff1d(np.arange(n_devices), np.asarray(selected, int))
         extra = rng.choice(pool, target - len(selected), replace=False)
         selected = selected + list(extra)
     return selected
+
+
+# --------------------------------------------------------------------------
+# serial oracles (the original list-based engines)
+# --------------------------------------------------------------------------
+
+
+class SerialFedAvgScheduler(Scheduler):
+    """[3]: uniformly random H devices per round (serial oracle)."""
+
+    def __init__(self, n_devices: int, H: int):
+        self.n_devices = n_devices
+        self.H = H
+
+    def schedule(self, rng) -> np.ndarray:
+        return rng.choice(self.n_devices, self.H, replace=False)
+
+
+class SerialVKCScheduler(Scheduler):
+    """Algorithm 3 — vanilla K-Center: h random devices per cluster
+    (serial oracle)."""
+
+    def __init__(self, clusters: Sequence[int], h: int):
+        clusters = np.asarray(clusters)
+        self.n_devices = len(clusters)
+        self.K = int(clusters.max()) + 1
+        self.h = h
+        self.members = [np.flatnonzero(clusters == k) for k in range(self.K)]
+
+    @property
+    def H(self) -> int:
+        return self.h * self.K
+
+    def schedule(self, rng) -> np.ndarray:
+        sel: List[int] = []
+        for k in range(self.K):
+            ck = self.members[k]
+            if len(ck) >= self.h:                       # line 7
+                sel += list(rng.choice(ck, self.h, replace=False))
+            else:                                       # line 9
+                sel += list(ck)
+        sel = _topup(sel, self.n_devices, self.H, rng)
+        return np.asarray(sel)
+
+
+class SerialIKCScheduler(Scheduler):
+    """Algorithm 4 — improved K-Center with per-cluster rotation sets G_k
+    (serial oracle).
+
+    C_k = not-recently-scheduled members, G_k = recently scheduled. Fresh
+    devices are preferred; when C_k runs dry it is refilled from G_k,
+    guaranteeing every cluster member is scheduled before any repeats.
+    Top-up picks are recorded into their cluster's G_k so the invariant
+    also holds across the Alg.-4 line 21-24 path.
+    """
+
+    def __init__(self, clusters: Sequence[int], h: int):
+        clusters = np.asarray(clusters)
+        self.clusters = clusters
+        self.n_devices = len(clusters)
+        self.K = int(clusters.max()) + 1
+        self.h = h
+        self.C = [list(np.flatnonzero(clusters == k)) for k in range(self.K)]
+        self.G: List[List[int]] = [[] for _ in range(self.K)]
+
+    @property
+    def H(self) -> int:
+        return self.h * self.K
+
+    def schedule(self, rng) -> np.ndarray:
+        sel: List[int] = []
+        for k in range(self.K):
+            Ck, Gk, h = self.C[k], self.G[k], self.h
+            if len(Ck) + len(Gk) >= h:
+                if len(Ck) >= h:                        # line 9
+                    pick = list(rng.choice(Ck, h, replace=False))
+                    self.C[k] = [d for d in Ck if d not in pick]
+                    self.G[k] = Gk + pick
+                else:                                   # lines 11-14
+                    pick = list(Ck)
+                    need = h - len(pick)
+                    from_g = list(rng.choice(Gk, need, replace=False))
+                    pick += from_g
+                    remaining = [d for d in Gk if d not in from_g]
+                    self.C[k] = remaining               # line 13
+                    self.G[k] = list(pick)              # line 14
+                sel += pick
+            else:                                       # line 17
+                sel += list(Ck) + list(Gk)
+        return self.topup_to(np.asarray(sel, dtype=np.int64), self.H, rng)
+
+    def topup_to(self, selected, target: int, rng) -> np.ndarray:
+        """Alg.-4 top-up that keeps the rotation invariant: draw from the
+        not-yet-rotated devices (any cluster's C_k) first, fall back to
+        the general pool only once every fresh device is scheduled, and
+        record each pick into its cluster's G_k."""
+        selected = [int(d) for d in np.asarray(selected, dtype=np.int64)]
+        need = target - len(selected)
+        if need <= 0:
+            return np.asarray(selected, dtype=np.int64)
+        sel_set = set(selected)
+        fresh = [d for k in range(self.K) for d in self.C[k]
+                 if d not in sel_set]
+        pick: List[int] = []
+        if fresh:
+            pick += [int(d) for d in rng.choice(
+                np.asarray(fresh), min(need, len(fresh)), replace=False)]
+        if len(pick) < need:
+            pool = np.setdiff1d(np.arange(self.n_devices),
+                                np.asarray(selected + pick, int))
+            pick += [int(d) for d in rng.choice(pool, need - len(pick),
+                                                replace=False)]
+        for d in pick:
+            k = int(self.clusters[d])
+            if d in self.C[k]:                          # record the pick
+                self.C[k].remove(d)
+                self.G[k].append(d)
+        return np.asarray(selected + pick, dtype=np.int64)
+
+
+# --------------------------------------------------------------------------
+# vectorized engines
+# --------------------------------------------------------------------------
 
 
 def _in_sorted(vals: np.ndarray, sorted_arr: np.ndarray) -> np.ndarray:

@@ -89,6 +89,24 @@ def test_kmeans_torch_seeding_is_a_valid_start():
     assert tcl.adjusted_rand_index(lab.numpy(), truth.numpy()) > 0.9
 
 
+def test_kmeans_more_centres_than_rows():
+    """k above the number of distinct rows (the model-zoo launcher's smoke
+    jobs cluster 8 devices into K=10): once every row is a centre the
+    reference's ``jax.random.choice`` draws from an all-zero distribution
+    and takes row 0; the port picks row 0 too, and kmeans runs on."""
+    x = np.eye(8, dtype=np.float32) * 3.0
+    ref = np.asarray(jcl._kmeans_pp_init(jax.random.PRNGKey(0),
+                                         jnp.asarray(x), 10))
+    g = torch.Generator().manual_seed(0)
+    idx = tcl.kmeans_pp_indices(torch.from_numpy(x), 10, g)
+    assert sorted(idx[:8].tolist()) == list(range(8))
+    assert idx[8:].tolist() == [0, 0]
+    np.testing.assert_array_equal(x[idx.numpy()][8:], ref[8:])
+    lab, cen = tcl.kmeans_best_of(torch.from_numpy(x), 10, restarts=2,
+                                  iters=3, generator=g)
+    assert len(set(lab.tolist())) == 8 and cen.shape == (10, 8)
+
+
 def test_adjusted_rand_index_matches():
     rng = np.random.default_rng(0)
     for n in (10, 300):

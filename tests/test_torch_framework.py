@@ -215,7 +215,8 @@ assert {"repro_torch.core.sweep", "repro_torch.core.assignment.hfel",
         "repro_torch.checkpoint.ckpt", "repro_torch.launch.serve",
         "repro_torch.data.pipeline", "repro_torch.launch.train",
         "repro_torch.launch.mesh", "repro_torch.parallel.sharding",
-        "repro_torch.parallel.sharder"} <= set(names), names
+        "repro_torch.parallel.sharder",
+        "repro_torch.launch.dryrun"} <= set(names), names
 import repro_torch.core.sweep as sweep
 assert sweep.SweepRunner is repro_torch.SweepRunner
 import repro_torch.core.async_engine as ae
