@@ -1,0 +1,8 @@
+"""assign_ms: wall milliseconds a round in the program's ``assign`` phase
+(its round records' ``seconds["assign"]``, host clock, each phase ending
+in a device synchronise), the mean over the window's rounds."""
+from hflbench.metrics import phase_ms
+
+
+def read(run):
+    return phase_ms(run, "assign")

@@ -1,0 +1,9 @@
+"""idle_pct: the share of the traced window in which no operation runs
+on the device (the window less the union of the device operations'
+intervals)."""
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
