@@ -68,8 +68,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    c. one ``HFLFramework`` round each with ``assigner="hfel"`` and
       ``assigner="drl"`` (the trained params), kernels on and the
       clustering's labels injected: round 1's cohort again, K1 6
-      launches a round and no K2; ``assign_latency_s`` of geo, DRL and
-      HFEL on that cohort.
+      launches a round and no K2; the assign phase's seconds
+      (``seconds["assign"]``, host clock) of geo, DRL and HFEL on that
+      cohort.
 6. Where the time goes: the setup once more (without PyTorch's one-off
    imports) and a fourth uncompressed round under ``torch.profiler``:
    device busy time against wall time, and the kernels that took the
@@ -959,7 +960,7 @@ def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
           "D3QN update wave: card and CPU differ beyond the limits")
 
     # ---- c. framework rounds with the paper's assigners
-    lat = {"geo": geo_rec["assign_latency_s"]}
+    lat = {"geo": geo_rec["seconds"]["assign"]}
     for assigner in ("hfel", "drl"):
         zero_counts()
         fa = HFLFramework(sp, pop, fed, dataclasses.replace(
@@ -970,13 +971,13 @@ def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
         read_counts(f"{assigner} round", {"masked_aggregate": sp.Q + 1})
         check(np.array_equal(log[0][0], sched),
               f"{assigner} round: another cohort than the geo round's")
-        lat[assigner] = rec["assign_latency_s"]
+        lat[assigner] = rec["seconds"]["assign"]
         print(f"{assigner} round 1: {int((log[0][1] != geo_assign).sum())} "
               f"of {len(sched)} devices off their nearest edge; T_i "
               f"{rec['T_i']:.4f} (geo {geo_rec['T_i']:.4f}), E_i "
               f"{rec['E_i']:.4f} (geo {geo_rec['E_i']:.4f})")
         del fa
-    print(f"assign_latency_s on round 1's cohort (H={len(sched)}): "
+    print(f"assign seconds on round 1's cohort (H={len(sched)}): "
           + ", ".join(f"{k} {v:.6f}" for k, v in lat.items()))
 
 

@@ -95,6 +95,9 @@ Module map (port -> reference):
 ``repro_torch.kernels.flash_attention.ops``    ``repro.kernels.flash_attention``
                                                flash_attention (and ``ref.py``)
 ``repro_torch.kernels.build``                  (new) nvcc build + ctypes loading
+``repro_torch.trace``                          (new) phase spans (CUDA-event device time,
+                                               no synchronise) and counters of the
+                                               round, sweep and set-up paths
 =============================================  =================================================
 
 CUDA kernels (``csrc/``, built for ``sm_90a`` at first use) and the

@@ -34,21 +34,24 @@ tensors or the reference's arrays); ``assigner="hfel"`` searches with
 the framework's own rng, so its proposals advance the Generator the
 next round's scheduler draws from, as in the reference.
 
-Every round record carries ``seconds``, the wall time of its phases
-(schedule, assign, allocate, train, aggregate, eval), each ending in a
-device synchronise; ``setup_seconds["cluster"]`` is the one-off
-clustering.
+Every round runs under a ``repro_torch.trace.Tracer`` (no synchronise
+for timing): its record carries ``seconds``, the time of its phases
+(schedule and assign on the host clock; allocate, train, aggregate and
+eval as device time between CUDA events, summed over the phase's spans)
+and ``trace``, the round's spans and counters. ``setup_seconds`` times
+the one-off clustering the same way: ``cluster``, and inside it
+``aux_train`` (the auxiliary model's training) and ``kmeans``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.registry import get_hfl_spec
 from repro_torch.convert import flatten_params, params_from_numpy
 from repro_torch.core import compression as comp
@@ -63,7 +66,13 @@ from repro_torch.core.scheduling import (FedAvgScheduler, IKCScheduler,
                                          VKCScheduler, clustering_cost,
                                          run_device_clustering)
 from repro_torch.data.partition import FederatedData
-from repro_torch.utils import Stopwatch, phase, resolve_device, tree_bytes
+from repro_torch.utils import resolve_device, tree_bytes
+
+# the phases of a round record's ``seconds``; the first two run on the
+# host alone and are timed on its clock
+ROUND_PHASES = ("schedule", "assign", "allocate", "train", "aggregate",
+                "eval")
+HOST_PHASES = ("schedule", "assign")
 
 
 def round_step_lanes(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
@@ -72,8 +81,7 @@ def round_step_lanes(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
                      agg_kernel: bool = False, train_only: bool = False,
                      done=None, codec: Optional[comp.CompressionConfig] = None,
                      codec_state=None,
-                     noise: Optional[Sequence[comp.NoiseSource]] = None,
-                     stopwatch: Optional[Stopwatch] = None):
+                     noise: Optional[Sequence[comp.NoiseSource]] = None):
     """One global iteration minus scheduling and assignment, for S
     independent lanes at once (the sweep's round body;
     :func:`round_step_core` is its S=1 case).
@@ -84,7 +92,9 @@ def round_step_lanes(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
     (S, ...). Builds the per-edge masks, solves all S·M allocations (27)
     in one batch, prices each lane's round (13)/(14) and runs the
     lane-batched Algorithm 1. Returns (new_params, (T_i, E_i, T_m, E_m,
-    b, f)) with T_i/E_i (S,), T_m/E_m (S, M), b/f (S, H).
+    b, f)) with T_i/E_i (S,), T_m/E_m (S, M), b/f (S, H). The allocation
+    and pricing are the current tracer's ``allocate`` span, marked on
+    the device.
 
     ``train_only`` skips the allocation and the pricing (all costs 0).
     ``done`` (S,) bool marks lanes that no longer train: their params
@@ -104,7 +114,7 @@ def round_step_lanes(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
         T_m = E_m = zeros[:, None].expand(S, M)
         b = f = zeros[:, None].expand(S, H)
     else:
-        with phase(stopwatch, "allocate"):
+        with trace.span("allocate", mark=True):
             edge_mask = assign[:, None, :] == torch.arange(
                 M, device=dev)[None, :, None]                    # (S, M, H)
 
@@ -127,11 +137,11 @@ def round_step_lanes(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
         new_params, new_dev, new_edge = hfl_global_iteration_lanes(
             apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q,
             lr=lr, agg_kernel=agg_kernel, codec=codec, dev_resid=dev_resid,
-            edge_resid=edge_resid, noise=noise, stopwatch=stopwatch)
+            edge_resid=edge_resid, noise=noise)
     else:
         new_params = hfl_global_iteration_lanes(
             apply_fn, params, X, y, mask, sizes, assign, M=M, L=L, Q=Q,
-            lr=lr, agg_kernel=agg_kernel, stopwatch=stopwatch)
+            lr=lr, agg_kernel=agg_kernel)
     if done is not None:
         def freeze(old, new):
             return {k: torch.where(
@@ -155,8 +165,7 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
                     agg_kernel: bool = False,
                     codec: Optional[comp.CompressionConfig] = None,
                     codec_state=None,
-                    noise: Optional[comp.NoiseSource] = None,
-                    stopwatch: Optional[Stopwatch] = None):
+                    noise: Optional[comp.NoiseSource] = None):
     """One global iteration minus scheduling and assignment: the S=1 lane
     of :func:`round_step_lanes`.
 
@@ -181,7 +190,7 @@ def round_step_core(apply_fn, sp: cm.SystemParams, params, u, D, p, g,
         agg_kernel=agg_kernel, codec=codec,
         codec_state=(tuple(lane(t) for t in codec_state) if compress
                      else None),
-        noise=[noise] if compress else None, stopwatch=stopwatch)
+        noise=[noise] if compress else None)
     aux = tuple(a[0] for a in out[-1])
     if compress:
         return unlane(out[0]), tuple(unlane(t) for t in out[1]), aux
@@ -341,15 +350,19 @@ class HFLFramework:
 
     def _setup_scheduler(self, labels):
         cfg = self.cfg
-        sw = Stopwatch(self.device)
-        with sw.phase("cluster"):
+        tracer = trace.Tracer(self.device)
+        with trace.use(tracer), tracer.span("cluster"):
             self.scheduler, self.clustering_stats = build_scheduler(
                 cfg.scheduler, self.fed, self.sp, cfg.H, K=cfg.K, lr=cfg.lr,
                 use_kernel=cfg.use_kernel, pop=self.pop, arch=cfg.arch,
                 labels=labels, device=self.device, generator=self.generator,
                 params=self.model_params, data=(self.X, self.y, self.mask))
+        tracer.finish()         # the labels were read back to the host
         if cfg.scheduler != "fedavg":
-            self.setup_seconds = dict(sw.seconds)
+            self.setup_seconds = {
+                "cluster": tracer.seconds("cluster"),
+                "aux_train": tracer.seconds("cluster.aux_train"),
+                "kmeans": tracer.seconds("cluster.kmeans")}
 
     def _setup_assigner(self, drl_params):
         a = self.cfg.assigner
@@ -369,15 +382,33 @@ class HFLFramework:
     # ------------------------------------------------------------- round
 
     def run_round(self, i: int) -> Dict:
+        sp = self.sp
+        tracer = trace.Tracer(self.device, unit=i)
+        with trace.use(tracer), tracer.span("round"):
+            T_i, E_i, acc, H = self._round(i)
+        msg_bits = cm.round_msg_bits(sp, sp.Q * H, self.pop.n_edges,
+                                     msg_bits=self.uplink_bits)
+        rec = {"iter": i, "acc": acc, "T_i": float(T_i), "E_i": float(E_i),
+               "obj_i": float(E_i + sp.lam * T_i),
+               "msg_bits": float(msg_bits),
+               "uplink_bytes": float(sp.Q * H * self.uplink_bits / 8),
+               "codec": self.codec.codec, "H": H}
+        tracer.finish()         # after the read-backs of acc, T_i and E_i
+        rec["seconds"] = {k: tracer.seconds(k, host=k in HOST_PHASES)
+                          for k in ROUND_PHASES}
+        rec["trace"] = tracer.record()
+        self.history.append(rec)
+        return rec
+
+    def _round(self, i: int):
+        """Round ``i``'s phases; returns (T_i, E_i, acc, H), the
+        accuracy read back to the host."""
         sp, pop, dev = self.sp, self.pop, self.device
-        sw = Stopwatch(dev)
-        with sw.phase("schedule"):
+        with trace.span("schedule"):
             sched = np.asarray(self.scheduler.schedule(self.rng))
-        t0 = time.perf_counter()
-        with sw.phase("assign"):
+        with trace.span("assign"):
             assign, _ = self.assigner.assign(pop, sched, self.rng)
             assign = np.asarray(assign)
-        assign_latency = time.perf_counter() - t0
         H = len(sched)
 
         s = torch.from_numpy(sched.astype(np.int64)).to(dev)
@@ -387,9 +418,9 @@ class HFLFramework:
                 self.cfg.lr)
         kw = dict(M=pop.n_edges, L=sp.L, Q=sp.Q,
                   alloc_steps=self.cfg.alloc_steps,
-                  agg_kernel=self.cfg.agg_kernel, stopwatch=sw)
+                  agg_kernel=self.cfg.agg_kernel)
         if self.cfg.engine == "sequential":
-            T_i, E_i = self._sequential_alloc_cost_train(s, a, sw)
+            T_i, E_i = self._sequential_alloc_cost_train(s, a)
         elif self.codec.active:
             dev_resid, edge_resid = self.codec_state
             cohort = {k: r[s] for k, r in dev_resid.items()}
@@ -405,28 +436,18 @@ class HFLFramework:
             self.model_params, (T_i, E_i, _, _, _, _) = round_step_core(
                 self.apply_fn, sp, self.model_params, *args, **kw)
 
-        with sw.phase("eval"):
+        with trace.span("eval"):
             acc = self.spec.eval_fn(self.model_params,
                                     self.fed.X_test, self.fed.y_test)
-        msg_bits = cm.round_msg_bits(sp, sp.Q * H, pop.n_edges,
-                                     msg_bits=self.uplink_bits)
-        rec = {"iter": i, "acc": acc, "T_i": float(T_i), "E_i": float(E_i),
-               "obj_i": float(E_i + sp.lam * T_i),
-               "msg_bits": float(msg_bits),
-               "uplink_bytes": float(sp.Q * H * self.uplink_bits / 8),
-               "codec": self.codec.codec,
-               "assign_latency_s": assign_latency,
-               "H": H, "seconds": dict(sw.seconds)}
-        self.history.append(rec)
-        return rec
+        return T_i, E_i, acc, H
 
-    def _sequential_alloc_cost_train(self, s, a, sw: Stopwatch):
+    def _sequential_alloc_cost_train(self, s, a):
         """The per-edge oracle of the fused engine: M separate
         allocations, ``round_cost``, then Algorithm 1 with the plain
         aggregation. s, a: (H,) int64 cohort and assignment."""
         sp, pop = self.sp, self.pop
         H = s.shape[0]
-        with sw.phase("allocate"):
+        with trace.span("allocate", mark=True):
             b = torch.zeros(H, dtype=torch.float32, device=self.device)
             f = torch.zeros_like(b)
             for m in range(pop.n_edges):
@@ -440,7 +461,7 @@ class HFLFramework:
         self.model_params = hfl_global_iteration_core(
             self.apply_fn, self.model_params, self.X[s], self.y[s],
             self.mask[s], pop.D[s], a, M=pop.n_edges, L=sp.L, Q=sp.Q,
-            lr=self.cfg.lr, stopwatch=sw)
+            lr=self.cfg.lr)
         return T_i, E_i
 
     def run(self, verbose: bool = True) -> Dict:

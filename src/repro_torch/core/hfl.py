@@ -33,12 +33,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import compression as comp
 from repro_torch.core.local_train import cohort_local_sgd
 from repro_torch.data.partition import FederatedData
 from repro_torch.kernels.hier_agg.ops import (
     masked_aggregate_leaves_batched, masked_decode_aggregate_leaves_batched)
-from repro_torch.utils import Params, Stopwatch, phase, resolve_device
+from repro_torch.utils import Params, resolve_device
 
 
 def pad_device_data(fed: FederatedData, Dmax: Optional[int] = None,
@@ -70,8 +71,7 @@ def hfl_global_iteration_lanes(apply_fn: Callable, global_params: Params, X,
                                dev_resid: Optional[Params] = None,
                                edge_resid: Optional[Params] = None,
                                noise: Optional[
-                                   Sequence[comp.NoiseSource]] = None,
-                               stopwatch: Optional[Stopwatch] = None):
+                                   Sequence[comp.NoiseSource]] = None):
     """Algorithm 1 for S independent lanes at once (the sweep's lane
     batch; :func:`hfl_global_iteration_core` is its S=1 case).
 
@@ -83,7 +83,9 @@ def hfl_global_iteration_lanes(apply_fn: Callable, global_params: Params, X,
     over every lane and leaf: with ``agg_kernel`` the ``hier_agg``
     masked aggregation (one launch a hop on a card), otherwise a
     per-lane ``torch.bmm`` against the normalised panel (the oracle).
-    A ``stopwatch`` splits the time into "train" and "aggregate".
+    Each hop's training is a ``train`` span (attribute ``hop``) and each
+    aggregation an ``aggregate`` span of the current tracer
+    (``repro_torch.trace``).
 
     With an active ``codec`` both uplinks are compressed: devices encode
     their post-SGD delta against the edge model they pulled and edges
@@ -95,7 +97,7 @@ def hfl_global_iteration_lanes(apply_fn: Callable, global_params: Params, X,
     ``edge_resid`` ((S, M, ...)) are the error-feedback residuals;
     ``noise`` holds one int8 noise source per lane, each giving the
     rounding uniforms of its lane's rows per (hop, leaf). Encoding counts
-    as "aggregate" time. Returns ``(new_params, new_dev_resid,
+    as ``aggregate`` time. Returns ``(new_params, new_dev_resid,
     new_edge_resid)`` in this mode; without a codec (``None`` or
     ``"none"``) the uncompressed path and its single return value.
     """
@@ -183,7 +185,7 @@ def hfl_global_iteration_lanes(apply_fn: Callable, global_params: Params, X,
     edge_params = {k: g[:, None].expand((S, M) + g.shape[1:])
                    for k, g in global_params.items()}
     for hop in range(Q):
-        with phase(stopwatch, "train"):
+        with trace.span("train", hop=hop):
             # each device pulls its lane's edge model
             pulled = {k: e[lanes, assign] for k, e in edge_params.items()}
             dev_params = cohort_local_sgd(
@@ -192,7 +194,7 @@ def hfl_global_iteration_lanes(apply_fn: Callable, global_params: Params, X,
                 X.reshape((S * H,) + X.shape[2:]),
                 y.reshape((S * H,) + y.shape[2:]),
                 mask.reshape((S * H,) + mask.shape[2:]), L, lr)
-        with phase(stopwatch, "aggregate"):
+        with trace.span("aggregate", hop=hop):
             names = list(dev_params)
             if compress:
                 # (2) in delta space, on the decoded uplinks: every leaf
@@ -226,7 +228,7 @@ def hfl_global_iteration_lanes(apply_fn: Callable, global_params: Params, X,
             edge_params = new_edge
 
     # (3): cloud aggregation, weights D_{N_m} (empty edges weigh 0)
-    with phase(stopwatch, "aggregate"):
+    with trace.span("aggregate", hop=Q):
         names = list(edge_params)
         if not compress:
             aggs = cloud_aggregate([edge_params[k].reshape(S, M, -1)
@@ -257,8 +259,7 @@ def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
                               codec: Optional[comp.CompressionConfig] = None,
                               dev_resid: Optional[Params] = None,
                               edge_resid: Optional[Params] = None,
-                              noise: Optional[comp.NoiseSource] = None,
-                              stopwatch: Optional[Stopwatch] = None):
+                              noise: Optional[comp.NoiseSource] = None):
     """Algorithm 1 on one scheduled cohort; returns new global params:
     the S=1 lane of :func:`hfl_global_iteration_lanes`.
 
@@ -278,7 +279,7 @@ def hfl_global_iteration_core(apply_fn: Callable, global_params: Params, X,
         sizes[None], assign[None], M=M, L=L, Q=Q, lr=lr,
         agg_kernel=agg_kernel, codec=codec, dev_resid=lane(dev_resid),
         edge_resid=lane(edge_resid),
-        noise=None if noise is None else [noise], stopwatch=stopwatch)
+        noise=None if noise is None else [noise])
     if codec is not None and codec.active:
         return tuple(unlane(t) for t in out)
     return unlane(out)

@@ -13,6 +13,7 @@ from typing import Callable
 import torch
 from torch.func import grad, vmap
 
+from repro_torch import trace
 from repro_torch.utils import Params
 
 
@@ -45,6 +46,13 @@ def cohort_local_sgd(apply_fn: Callable, params_per_dev: Params, X, y,
 
     params_per_dev: leaves with a leading device axis H; X: (H, Dmax, ...),
     y and mask (H, Dmax). Each step is one vmapped gradient over H.
+    Counts the sample-steps it computes, padding included
+    (``train.sample_steps``, from the shapes), and the real ones
+    (``train.real_sample_steps``, the mask summed on its device).
     """
+    tracer = trace.current()
+    if tracer is not None:
+        tracer.count("train.sample_steps", mask.numel() * L)
+        tracer.count("train.real_sample_steps", mask.sum() * L)
     return _sgd(vmap(grad(functools.partial(masked_loss, apply_fn))),
                 params_per_dev, X, y, mask, L, lr)

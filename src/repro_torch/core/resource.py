@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import SystemParams
 
@@ -54,8 +55,11 @@ def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
     warm start, (E, n_slots) each; None is the cold start (zeros, ones).
     Adam's moments start at zero and the temperature runs its schedule
     over ``steps`` either way. Returns (AllocResult, (tb, tf)) with the
-    final iterates, ready to seed the next warm solve.
+    final iterates, ready to seed the next warm solve. Counts the solve
+    (``alloc.solves``) and the Adam steps it ran (``alloc.steps``) on
+    the current tracer.
     """
+    trace.count("alloc.solves", 1)
     any_dev = torch.any(mask, dim=-1)
     neg = -1e9
 
@@ -91,6 +95,7 @@ def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
     f32 = np.float32
     m = [torch.zeros_like(t) for t in theta]
     v = [torch.zeros_like(t) for t in theta]
+    ran = 0
     for i in range(steps):
         with torch.no_grad():
             # anneal the softmax temperature from loose to tight
@@ -107,6 +112,8 @@ def _allocate_core(sp: SystemParams, u, D, p, g, B_m, mask,
                 v[j] = b2 * v[j] + (1 - b2) * gr * gr
                 theta[j] = theta[j] - lr * (m[j] / c1) / (
                     torch.sqrt(v[j] / c2) + eps)
+        ran += 1
+    trace.count("alloc.steps", ran)
 
     with torch.no_grad():
         b, f = unpack(*theta)

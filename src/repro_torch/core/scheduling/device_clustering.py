@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch import trace
 from repro_torch.core import cost_model as cm
 from repro_torch.core.clustering import kmeans_best_of
 from repro_torch.core.local_train import cohort_local_sgd
@@ -42,15 +43,20 @@ def run_device_clustering(apply_fn: Callable, init_params: Params, X, y,
                           ) -> Tuple[np.ndarray, torch.Tensor]:
     """Algorithm 2. Returns (labels (N,), weight vectors (N, P)).
     ``init_idx`` (8, K) injects each restart's kmeans++ picks; otherwise
-    they come from ``generator``."""
-    vecs = auxiliary_weight_vectors(apply_fn, init_params, X, y, mask, L, lr)
+    they come from ``generator``. The auxiliary training and the K-means
+    are the spans ``cluster.aux_train`` and ``cluster.kmeans`` of the
+    current tracer."""
+    with trace.span("cluster.aux_train"):
+        vecs = auxiliary_weight_vectors(apply_fn, init_params, X, y, mask,
+                                        L, lr)
     # standardise features (weights have heterogeneous scales across
     # layers); the population std, as jnp.std computes it
     mu = torch.mean(vecs, dim=0, keepdim=True)
     sd = torch.std(vecs, dim=0, keepdim=True, correction=0) + 1e-8
-    labels, _ = kmeans_best_of((vecs - mu) / sd, K, restarts=8,
-                               use_kernel=use_kernel, init_idx=init_idx,
-                               generator=generator)
+    with trace.span("cluster.kmeans"):
+        labels, _ = kmeans_best_of((vecs - mu) / sd, K, restarts=8,
+                                   use_kernel=use_kernel, init_idx=init_idx,
+                                   generator=generator)
     return labels.cpu().numpy(), vecs
 
 

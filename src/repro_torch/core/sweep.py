@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 from torch.func import vmap
 
+from repro_torch import trace
 from repro_torch.configs.registry import get_hfl_spec
 from repro_torch.convert import lanes_from_numpy, params_from_numpy
 from repro_torch.core import compression as comp
@@ -233,7 +234,10 @@ def sweep_scan(apply_fn, sp: cm.SystemParams, sp_assign, params_b, u_b,
     edge_pos_b (S, ·, 2) positions and Xt_b / yt_b test stacks.
 
     Rounds are numbered from ``r0`` (the hfel key and the codec noise
-    read it). With an active ``codec`` the error-feedback state
+    read it). Each round is a ``round`` span of the current tracer, unit
+    ``(r0, r)``, holding its ``schedule`` (traced schedulers only),
+    ``assign``, ``allocate``, ``train``, ``aggregate`` and ``eval``
+    spans. With an active ``codec`` the error-feedback state
     ``codec_state_b`` is carried and ``codec_noise_b`` holds one
     round -> noise-source callable a lane.
 
@@ -246,39 +250,47 @@ def sweep_scan(apply_fn, sp: cm.SystemParams, sp_assign, params_b, u_b,
     accs, Ts, Es = [], [], []
     for i in range(n_rounds):
         r = r0 + i
-        if traced_sched is None:
-            sched_b = sched_rs[i]
-        else:
-            sched_state_b, sched_b = traced_sched.step(sched_state_b)
-        if assign == "mod":
-            assign_b = sched_b % M
-        elif assign == "geo":
-            assign_b = geo_assign_traced(dev_pos_b, edge_pos_b, sched_b)
-        elif assign == "drl":
-            assign_b = drl_assign_traced(drl_params, u_b, D_b, p_b, g_b,
-                                         sched_b)
-        else:
-            words = torch.cat([assign_words_b,
-                               assign_words_b.new_full((S, 1), r)], dim=1)
-            assign_b, _ = hfel_search_traced(
-                sp_assign, _lane_take(u_b, sched_b), _lane_take(D_b, sched_b),
-                _lane_take(p_b, sched_b), _lane_take(g_b, sched_b), B_m_b,
-                g_cloud_b, words, alloc_steps=alloc_steps, **hfel_kw)
-        kw = {}
-        if codec_on:
-            kw = dict(codec=codec, codec_state_b=codec_state_b,
-                      codec_noise_b=[f(r) for f in codec_noise_b])
-        out = sweep_round(
-            apply_fn, sp, params_b, u_b, D_b, p_b, g_b, g_cloud_b, B_m_b,
-            X_b, y_b, mask_b, sizes_b, sched_b, assign_b, lr, M=M, L=L, Q=Q,
-            alloc_steps=alloc_steps, train_only=train_only,
-            agg_kernel=agg_kernel, lane_chunk=lane_chunk, done_b=done_b, **kw)
-        params_b, (T_i, E_i) = out[0], out[1]
-        if codec_on:
-            codec_state_b = out[2]
-        acc = sweep_eval(apply_fn, params_b, Xt_b, yt_b)
-        if target_acc is not None:
-            done_b = done_b | (acc >= target_acc)
+        with trace.span("round", unit=(r0, r)):
+            if traced_sched is None:
+                sched_b = sched_rs[i]
+            else:
+                with trace.span("schedule"):
+                    sched_state_b, sched_b = traced_sched.step(sched_state_b)
+            with trace.span("assign"):
+                if assign == "mod":
+                    assign_b = sched_b % M
+                elif assign == "geo":
+                    assign_b = geo_assign_traced(dev_pos_b, edge_pos_b,
+                                                 sched_b)
+                elif assign == "drl":
+                    assign_b = drl_assign_traced(drl_params, u_b, D_b, p_b,
+                                                 g_b, sched_b)
+                else:
+                    words = torch.cat([assign_words_b,
+                                       assign_words_b.new_full((S, 1), r)],
+                                      dim=1)
+                    assign_b, _ = hfel_search_traced(
+                        sp_assign, _lane_take(u_b, sched_b),
+                        _lane_take(D_b, sched_b), _lane_take(p_b, sched_b),
+                        _lane_take(g_b, sched_b), B_m_b, g_cloud_b, words,
+                        alloc_steps=alloc_steps, **hfel_kw)
+            kw = {}
+            if codec_on:
+                kw = dict(codec=codec, codec_state_b=codec_state_b,
+                          codec_noise_b=[f(r) for f in codec_noise_b])
+            out = sweep_round(
+                apply_fn, sp, params_b, u_b, D_b, p_b, g_b, g_cloud_b, B_m_b,
+                X_b, y_b, mask_b, sizes_b, sched_b, assign_b, lr, M=M, L=L,
+                Q=Q, alloc_steps=alloc_steps, train_only=train_only,
+                agg_kernel=agg_kernel, lane_chunk=lane_chunk, done_b=done_b,
+                **kw)
+            params_b, (T_i, E_i) = out[0], out[1]
+            if codec_on:
+                codec_state_b = out[2]
+            with trace.span("eval"):
+                acc = sweep_eval(apply_fn, params_b, Xt_b, yt_b)
+                if target_acc is not None:
+                    done_b = done_b | (acc >= target_acc)
         accs.append(acc)
         Ts.append(T_i)
         Es.append(E_i)
@@ -725,10 +737,23 @@ class SweepRunner:
 
     # --------------------------------------------------------- fused run
 
-    def _run_fused(self, schedulers: Sequence, n_rounds: int, *,
-                   assign, seeds, target_acc, sizes, train_only,
-                   drl_params, oracle: bool, assign_seed: int,
-                   hfel_opts) -> Dict:
+    def _run_fused(self, schedulers: Sequence, n_rounds: int,
+                   **kw) -> Dict:
+        """``run(fused=...)`` under a tracer (``repro_torch.trace``):
+        the result's ``trace`` holds the spans and counters of the call,
+        a ``dispatch`` span around its ``schedule`` (the cohorts'
+        precompute), each round's spans (``sweep_scan``) and each
+        ``readback``, its device times read after the last read-back."""
+        tracer = trace.Tracer(self.device)
+        with trace.use(tracer), tracer.span("dispatch"):
+            out = self._fused(schedulers, n_rounds, **kw)
+        out["trace"] = tracer.finish().record()
+        return out
+
+    def _fused(self, schedulers: Sequence, n_rounds: int, *,
+               assign, seeds, target_acc, sizes, train_only,
+               drl_params, oracle: bool, assign_seed: int,
+               hfel_opts) -> Dict:
         """``run(fused=...)`` body: ``sweep_scan`` over all rounds with
         one read-back at the end (oracle=False), or one round a call
         with a read-back after each (oracle=True, the parity
@@ -764,42 +789,45 @@ class SweepRunner:
         # scheduling: TracedFedAvg state on the device, or an exact host
         # precompute (scheduling never reads training state, so the
         # (R, S, H) tensor reproduces the host loop's draws verbatim)
-        n_traced = sum(isinstance(s, TracedFedAvg) for s in schedulers)
-        if n_traced == self.S:
-            traced_sched = schedulers[0]
-            if any(s != traced_sched for s in schedulers):
-                raise ValueError(
-                    "fused TracedFedAvg lanes must share one (n_devices, "
-                    "H) config — per-lane variation lives in the seed")
-            H = traced_sched.H
-            sched_state_b = traced_sched.init_state(
-                self._local_seeds(seeds), self.device)
-            sched_rs = None
-        elif n_traced:
-            raise ValueError("cannot mix TracedFedAvg and host schedulers "
-                             "in one fused run")
-        else:
-            traced_sched = None
-            sched_state_b = None
-            live = [i for i in self.lanes if i < self.S]
-            rngs = [np.random.default_rng(seeds[i]) for i in live]
-            rounds = []
-            H = None
-            for _ in range(n_rounds):
-                scheds, H_r = _draw_cohorts([schedulers[i] for i in live],
-                                            rngs, self.N, width=self._width)
-                if H is None:
-                    H = H_r
-                elif H_r != H:
+        with trace.span("schedule"):
+            n_traced = sum(isinstance(s, TracedFedAvg) for s in schedulers)
+            if n_traced == self.S:
+                traced_sched = schedulers[0]
+                if any(s != traced_sched for s in schedulers):
                     raise ValueError(
-                        f"fused sweeps need a round-constant cohort size "
-                        f"(got H={H} then H={H_r}); use the per-round host "
-                        "path for schedulers whose worst-case cohort "
-                        "varies across rounds")
-                # dead lanes take any cohort: they are done from round 0
-                pad = [np.arange(H_r) % self.N] * (len(self.lanes) - len(live))
-                rounds.append(np.stack(scheds + pad))
-            sched_rs = self._tensor(np.stack(rounds))        # (R, S, H)
+                        "fused TracedFedAvg lanes must share one (n_devices, "
+                        "H) config — per-lane variation lives in the seed")
+                H = traced_sched.H
+                sched_state_b = traced_sched.init_state(
+                    self._local_seeds(seeds), self.device)
+                sched_rs = None
+            elif n_traced:
+                raise ValueError("cannot mix TracedFedAvg and host schedulers "
+                                 "in one fused run")
+            else:
+                traced_sched = None
+                sched_state_b = None
+                live = [i for i in self.lanes if i < self.S]
+                rngs = [np.random.default_rng(seeds[i]) for i in live]
+                rounds = []
+                H = None
+                for _ in range(n_rounds):
+                    scheds, H_r = _draw_cohorts(
+                        [schedulers[i] for i in live], rngs, self.N,
+                        width=self._width)
+                    if H is None:
+                        H = H_r
+                    elif H_r != H:
+                        raise ValueError(
+                            f"fused sweeps need a round-constant cohort "
+                            f"size (got H={H} then H={H_r}); use the "
+                            "per-round host path for schedulers whose "
+                            "worst-case cohort varies across rounds")
+                    # dead lanes take any cohort: they are done from round 0
+                    pad = ([np.arange(H_r) % self.N]
+                           * (len(self.lanes) - len(live)))
+                    rounds.append(np.stack(scheds + pad))
+                sched_rs = self._tensor(np.stack(rounds))        # (R, S, H)
 
         local_seeds = self._local_seeds(seeds)
         assign_words_b = self._tensor(
@@ -838,11 +866,13 @@ class SweepRunner:
                     = dispatch(params_b, done_b, sched_state_b, xs_r, cstate,
                                r, 1)
                 n_dispatches += 1
-                accs.append(acc_r[0].cpu().numpy()[:self.S])
-                Ts.append(T_r[0].cpu().numpy()[:self.S])
-                Es.append(E_r[0].cpu().numpy()[:self.S])
-                if target_acc is not None and self._all_lanes(
-                        done_b.cpu().numpy()).all():
+                with trace.span("readback"):
+                    accs.append(acc_r[0].cpu().numpy()[:self.S])
+                    Ts.append(T_r[0].cpu().numpy()[:self.S])
+                    Es.append(E_r[0].cpu().numpy()[:self.S])
+                    stop = target_acc is not None and self._all_lanes(
+                        done_b.cpu().numpy()).all()
+                if stop:
                     break
             acc_a = np.stack(accs, axis=1)               # (S, R_run)
             T_a = np.stack(Ts, axis=1)
@@ -852,9 +882,10 @@ class SweepRunner:
                 params_b, done_b, sched_state_b, sched_rs, cstate, 0,
                 n_rounds)
             n_dispatches = 1
-            acc_a = acc_rs.cpu().numpy().T[:self.S]      # (S, R)
-            T_a = T_rs.cpu().numpy().T[:self.S]
-            E_a = E_rs.cpu().numpy().T[:self.S]
+            with trace.span("readback"):
+                acc_a = acc_rs.cpu().numpy().T[:self.S]      # (S, R)
+                T_a = T_rs.cpu().numpy().T[:self.S]
+                E_a = E_rs.cpu().numpy().T[:self.S]
             if target_acc is not None:
                 # trim trailing all-done rounds so the fused result is
                 # row-for-row comparable with the early-breaking host loop

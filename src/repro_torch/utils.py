@@ -1,11 +1,8 @@
 """Shared small utilities: device resolution, parameter-dict helpers,
-unit conversions and a synchronising stopwatch."""
+unit conversions and a device synchronise."""
 from __future__ import annotations
 
-import contextlib
-import time
-from collections import defaultdict
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
 
 import torch
 
@@ -115,30 +112,3 @@ def db_to_linear(db) -> float:
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class Stopwatch:
-    """Accumulates wall seconds per phase name. Each phase ends with a
-    device synchronise, so a phase's time includes the device work it
-    queued."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds: Dict[str, float] = defaultdict(float)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            synchronize(self.device)
-            self.seconds[name] += time.perf_counter() - t0
-
-
-def phase(stopwatch: Optional[Stopwatch], name: str):
-    """``stopwatch.phase(name)``, or a no-op context without a stopwatch."""
-    if stopwatch is None:
-        return contextlib.nullcontext()
-    return stopwatch.phase(name)

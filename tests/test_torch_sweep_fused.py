@@ -220,10 +220,12 @@ def _fedavg(runner):
 
 
 def _equal(a, b):
-    assert a.keys() - {"n_dispatches"} == b.keys() - {"n_dispatches"}
-    for k in a:
-        if k != "n_dispatches":
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    """The results' numbers equal; how the run was dispatched and what
+    its tracer recorded (``n_dispatches``, ``trace``) may differ."""
+    how = {"n_dispatches", "trace"}
+    assert a.keys() - how == b.keys() - how
+    for k in a.keys() - how:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.mark.parametrize("assign,traced", [
