@@ -22,7 +22,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    edge and cloud hops (4 lanes x the four leaves, one launch each):
    graph-replay, eager and cold-L2 times (COLD_BYTES written before
    each call, each call timed alone) beside the plain version, one
-   torch.bmm a leaf and the bound.
+   torch.bmm a leaf and the bound. Then K6, the CNN's fused conv ->
+   ReLU -> max-pool (``conv_pool_phase``), at CONV_CASES (FashionMNIST's
+   two blocks over 50 and 200 devices, CIFAR's conv 1 over 50, x 700
+   samples): y, idx, dW and dx against the plain block, CUDA-graph,
+   eager and plain ms and the share of the bound.
 3. Main paths: one Table-I world at full width (N=100 devices, M=5
    edges, D_n in [400, 700], the paper CNN of 457 532 bytes, H=50,
    K=10, IKC scheduling, geo assignment, 200-step allocation) through
@@ -37,8 +41,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Before each path every launch counter is zeroed; just after it they
    are read and must match the counts the path implies: one
    aggregation launch a hop over every leaf, Q + 1 = 6 a round (K1 12
-   over a, K4 12 over b, 6 for each round of c), K3 1 for d, K2 480.
-   Every output must be finite.
+   over a, K4 12 over b, 6 for each round of c), K3 1 for d, K2 480;
+   K6 a round 2 forward, 2 dW and 1 dx launches for each of the Q*L =
+   25 local steps and 2 forward launches for each of the evaluation's
+   4 batches (116, 100 and 50 over a and b, half that over each of c).
+   Every phase below that trains or evaluates the CNN expects K6's
+   launches the same way (``k6_launches``; the async engine's L steps a
+   dispatch from its records). Every output must be finite.
 4. Oracle rounds, from forks of the same state: a third uncompressed
    round with the kernel aggregation against the plain matmul
    (``agg_kernel=False``; T_i and E_i equal, params within PARAM_TOL)
@@ -283,11 +292,12 @@ arch; K5's the launches of phases 14 and 15 and the f32 path's row;
 K1's, K2's and K5's the launches of phase 16, whose K5 launches also
 count in K5's ``launches``; K1's, K2's and int8 and f32 K4's those of
 phase 17a, K4's by the entry launched; each ``max_abs_err`` also covers
-phase 17a's launches); the last
+phase 17a's launches; K6's the launches of 3a by kernel); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -325,6 +335,22 @@ FLIP_ATOL, FLIP_SHARE = 1e-5, 5e-2
 # any leaf (v_head's 257 elements included) moves it by ~lr = 1e-3.
 UPDATE_LOSS_RTOL, UPDATE_ATOL = 1e-4, 1e-5
 F32_FLOPS = 67e12       # H100/H200 SXM f32 rate outside the tensor cores
+# K6 (conv -> ReLU -> max-pool) at the CNN blocks the benchmark runs,
+# (tag, H, C, O, groups, dx): FashionMNIST's two over the round's H = 50
+# devices and the sweep's 4 lanes x 50, CIFAR's conv 1 over 50; D_max =
+# 700 samples a device; dx where the block's input needs a gradient
+# (conv 2's, a pooled activation; conv 1's is data). Forward to AGG_TOL
+# of the plain block (the kernel sums its 25*C taps in another order
+# than cuBLAS); dW and dx to CONV_GRAD_TOL of the plain backward's
+# largest value; idx equal wherever no window has a near-tie, its top
+# two conv outputs (or its top one and 0) within CONV_TIE (the
+# tolerance of tests/test_torch_cuda.py's K6 tests).
+CONV_CASES = (("fmnist-conv1", 28, 1, 15, (50, 200), False),
+              ("fmnist-conv2", 12, 15, 28, (50, 200), True),
+              ("cifar-conv1", 32, 3, 15, (50,), False))
+CONV_SAMPLES = 700
+CONV_GRAD_TOL, CONV_TIE = 1e-4, 5e-5
+EVAL_BATCH = 512        # evaluate_in_batches' and sweep_eval's batch
 BF16_FLOPS = 989e12     # H100/H200 SXM bf16 tensor-core rate, dense
 TF32_FLOPS = 495e12     # H100/H200 SXM TF32 tensor-core rate, dense
 # flash attention vs its plain version: f32 to 2e-5 (the reference's own
@@ -788,6 +814,159 @@ def kernel_phase(torch, rate):
     return out
 
 
+def k6_launches(steps: int, evals: int = 0, n_test: int = 0) -> dict:
+    """K6's launches by counter for ``steps`` local steps of the CNN (each
+    a forward of both blocks, their dW and conv 2's dx, one launch each
+    over every vmapped device and lane) and ``evals`` evaluations of
+    ``n_test`` samples (a forward of both blocks a batch of EVAL_BATCH)."""
+    batches = evals * -(-n_test // EVAL_BATCH)
+    return {"conv_relu_pool": 2 * (steps + batches),
+            "conv_pool_dw": 2 * steps, "conv_pool_dx": steps}
+
+
+def k6_rounds(sp, rounds: int, n_test: int) -> dict:
+    """K6's launches for ``rounds`` HFL rounds of the CNN (Q edge
+    iterations of L local steps) with an evaluation after each."""
+    return k6_launches(rounds * sp.Q * sp.L, rounds, n_test)
+
+
+def conv_pool_phase(torch, rate):
+    """K6 against the plain block at CONV_CASES: forward y to AGG_TOL of
+    ``conv_relu_pool_ref`` under vmap (the im2col path the CNN took
+    before it), and idx equal to the plain conv outputs' first maximum
+    wherever no window has a near-tie; backward dW, and dx where the
+    block needs it, to CONV_GRAD_TOL of the largest value of the plain
+    backward routed by the kernel's own idx (``conv_pool_dw_ref``,
+    ``conv_pool_dx_ref``: the plain autograd backward routes by the
+    plain forward's argmax, which may side the other way at a near-tie).
+    Each direction is timed as CUDA-graph and eager ms beside the plain
+    block's eager ms (its ``torch.func.vjp`` for the backward) and the
+    bound: bytes at ``rate`` (x, w, y and idx; x, dy, idx, dW and dx) or
+    the flops these inputs need at F32_FLOPS (the forward's dense conv;
+    the backward's 25*C FMAs a tap for each pooled element that idx
+    routes a gradient to), whichever is larger."""
+    from repro_torch.kernels.conv_pool import ops as cp
+
+    def chunked(fn, *args, chunk=25):
+        """``fn`` over the group axis in chunks of groups: the plain
+        maths of 200 groups at once would hold all their patches."""
+        outs = [fn(*(a[i:i + chunk] for a in args))
+                for i in range(0, args[0].shape[0], chunk)]
+        return torch.cat(outs)
+
+    def clear_windows(x, w):
+        """True at each pooling window whose plain conv outputs have no
+        near-tie: top two within CONV_TIE (both above -CONV_TIE), or
+        the top one within CONV_TIE of 0."""
+        z = torch.stack([cp.im2col_conv(a, b) for a, b in zip(x, w)])
+        G, B, Ho, Wo, O = z.shape
+        top = z.reshape(G, B, Ho // 2, 2, Wo // 2, 2, O).permute(
+            0, 1, 2, 4, 6, 3, 5).reshape(G, B, Ho // 2, Wo // 2, O, 4
+                                         ).topk(2, dim=-1).values
+        tie = ((top[..., 0] - top[..., 1] < CONV_TIE)
+               & (top[..., 0] > -CONV_TIE)) | (top[..., 0].abs() < CONV_TIE)
+        return ~tie
+
+    rows = []
+    for tag, H, C, O, groups, dx_too in CONV_CASES:
+        for G in groups:
+            B, Ho = CONV_SAMPLES, H - 4
+            g = torch.Generator(device="cuda").manual_seed(G)
+            x = torch.rand((G, B, H, H, C), device="cuda", generator=g)
+            w = torch.randn((G, 5, 5, C, O), device="cuda", generator=g) \
+                * (2.0 / (25 * C)) ** 0.5
+            y, idx = cp.conv_relu_pool_cuda(x, w)
+            dy = torch.randn(y.shape, device="cuda", generator=g)
+            plain = torch.func.vmap(cp.conv_relu_pool_ref)
+            with torch.no_grad():
+                ref = plain(x, w)
+                err = float((y - ref).abs().max())
+                check(bool(((y - ref).abs()
+                            <= AGG_TOL * (1 + ref.abs())).all()),
+                      f"conv_relu_pool {tag} G={G}: max_abs_err {err}")
+                del ref
+                clear = chunked(clear_windows, x, w)
+                idx_ref = chunked(
+                    lambda a, b: cp.conv_relu_pool_groups_ref(a, b)[1], x, w)
+                share = float(clear.float().mean())
+                check(share > 0.99
+                      and torch.equal(idx[clear], idx_ref[clear]),
+                      f"conv_relu_pool {tag} G={G}: idx differs from the "
+                      f"plain first maximum away from near-ties "
+                      f"({100 * share:.3f} % of the windows clear)")
+                del clear, idx_ref
+            grads = {"dW": (cp.conv_pool_dw_cuda(x, dy, idx),
+                            chunked(cp.conv_pool_dw_ref, x, dy, idx))}
+            if dx_too:
+                grads["dx"] = (cp.conv_pool_dx_cuda(w, dy, idx),
+                               chunked(cp.conv_pool_dx_ref, w, dy, idx))
+            gerr = {}
+            for name, (got, want) in grads.items():
+                scale = float(want.abs().max())
+                gerr[name] = float((got - want).abs().max()) / scale
+                check(gerr[name] <= CONV_GRAD_TOL,
+                      f"conv_pool {tag} G={G}: {name} differs from the "
+                      f"plain backward by {gerr[name]:.3e} of its largest "
+                      f"value {scale:.3e}")
+            del grads
+
+            def backward():
+                cp.conv_pool_dw_cuda(x, dy, idx)
+                if dx_too:
+                    cp.conv_pool_dx_cuda(w, dy, idx)
+            if dx_too:
+                _, pull = torch.func.vjp(plain, x, w)
+            else:
+                _, pull = torch.func.vjp(lambda w_: plain(x, w_), w)
+            routed = int((idx != cp.NONE).sum())
+            sizes = {"x": x.numel() * 4, "w": w.numel() * 4,
+                     "y": y.numel() * 4, "idx": idx.numel()}
+            work = {"forward": (2 * G * B * Ho * Ho * O * 25 * C,
+                                sizes["x"] + sizes["w"] + sizes["y"]
+                                + sizes["idx"]),
+                    "backward": (2 * routed * 25 * C * (2 if dx_too else 1),
+                                 sizes["x"] + 2 * sizes["w"] + sizes["y"]
+                                 + sizes["idx"]
+                                 + (sizes["x"] if dx_too else 0))}
+            runs = {"forward": (lambda: cp.conv_relu_pool_cuda(x, w),
+                                lambda: plain(x, w)),
+                    "backward": (backward, lambda: pull(dy))}
+            dw_ms = time_ms(lambda: cp.conv_pool_dw_cuda(x, dy, idx), 10)[0]
+            for way, (kernel, plain_fn) in runs.items():
+                ms, eager = time_ms(kernel, 10)
+                with torch.no_grad() if way == "forward" else \
+                        contextlib.nullcontext():
+                    plain_ms = time_events(torch, plain_fn, 3)
+                flops, nbytes = work[way]
+                by_b, by_f = nbytes / rate * 1e3, flops / F32_FLOPS * 1e3
+                row = dict(block=tag, G=G, B=B, way=way, ms=ms,
+                           eager_ms=eager, plain_ms=plain_ms,
+                           bound_ms=max(by_b, by_f),
+                           bound_by="bytes" if by_b >= by_f else "operations",
+                           bound_share=max(by_b, by_f) / ms)
+                if way == "forward":
+                    row.update(err=err, idx_clear_share=share)
+                else:
+                    row.update(dw_ms=dw_ms, **{f"{k}_rel_err": v
+                                               for k, v in gerr.items()})
+                print(f"conv_relu_pool {tag} G={G:3d} B={B} {way:8s}: "
+                      f"ms={ms:.4f} "
+                      + (f"(dW {dw_ms:.4f}) " if way == "backward" else "")
+                      + f"eager_ms={eager:.4f} "
+                      f"plain_ms={plain_ms:.4f} bound_ms="
+                      f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                      f"{100 * row['bound_share']:.1f} % of the bound; "
+                      + (f"max_abs_err {err:.3e}, idx checked on "
+                         f"{100 * share:.3f} % of the windows"
+                         if way == "forward" else "errors of the largest "
+                         "value " + ", ".join(f"{k} {v:.3e}"
+                                              for k, v in gerr.items())))
+                rows.append(row)
+            del x, w, y, idx, dy, pull
+            torch.cuda.empty_cache()
+    return rows
+
+
 def fork(fw, **cfg_changes):
     """A framework sharing ``fw``'s world, with its own copy of the
     round state (params, codec residuals, scheduler, rng), so two rounds
@@ -968,7 +1147,9 @@ def assignment_phase(torch, sp, pop, fed, cfg, fw, labels, geo_rec,
             drl_params=tr.params if assigner == "drl" else None)
         log = record_assignments(fa)
         rec = run_rounds(torch, fa, (1,), assigner)[0]
-        read_counts(f"{assigner} round", {"masked_aggregate": sp.Q + 1})
+        read_counts(f"{assigner} round", {
+            "masked_aggregate": sp.Q + 1,
+            **k6_rounds(sp, 1, len(fed.y_test))})
         check(np.array_equal(log[0][0], sched),
               f"{assigner} round: another cohort than the geo round's")
         lat[assigner] = rec["seconds"]["assign"]
@@ -995,6 +1176,7 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
     worlds = [(pop, fed)] * S
     kw = dict(lr=0.01, alloc_steps=200, agg_kernel=True)
     per_round = sp.Q + 1
+    n_test = len(fed.y_test)
     out = {}
 
     def schedulers(labels=None):
@@ -1024,7 +1206,8 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
     out["launches"] = read_counts(
         f"sweep a ({S} lanes, {SWEEP_ROUNDS} geo rounds)", {
         "masked_aggregate": SWEEP_ROUNDS * per_round,
-        "pairwise_sq_dists": S * 8 * ((K - 1) + 50 + 1)}
+        "pairwise_sq_dists": S * 8 * ((K - 1) + 50 + 1),
+        **k6_rounds(sp, SWEEP_ROUNDS, n_test)}
     )["masked_aggregate"]
     peak = torch.cuda.max_memory_allocated()
     per = wall / SWEEP_ROUNDS
@@ -1054,7 +1237,8 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
     kern = sw.SweepRunner(sp, worlds, **kw)
     rk = kern.run(schedulers(labels), 2, seeds=seeds)
     read_counts("sweep b (kernel sweep, 2 rounds)",
-                {"masked_aggregate": 2 * per_round})
+                {"masked_aggregate": 2 * per_round,
+                 **k6_rounds(sp, 2, n_test)})
     plain = sw.SweepRunner(sp, worlds, **{**kw, "agg_kernel": False})
     rp = plain.run(schedulers(labels), 2, seeds=seeds)
     dmax = lanes_close(kern.params_b, plain.params_b)
@@ -1077,7 +1261,8 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
                                    kern.params0.items()})
     recs = [fw.run_round(i) for i in (1, 2)]
     read_counts("sweep b (HFLFramework, lane 0's world, 2 rounds)",
-                {"masked_aggregate": 2 * per_round})
+                {"masked_aggregate": 2 * per_round,
+                 **k6_rounds(sp, 2, n_test)})
     d0 = max(float((kern.params_b[k][0] - v).abs().max())
              for k, v in fw.model_params.items())
     fT = [r["T_i"] for r in recs]
@@ -1133,7 +1318,8 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
                 schedulers(labels), R, assign=assign, seeds=seeds,
                 fused="oracle"))
             read_counts(f"sweep d ({assign}: fused + oracle, {R} rounds "
-                        "each)", {"masked_aggregate": 2 * R * per_round})
+                        "each)", {"masked_aggregate": 2 * R * per_round,
+                                  **k6_rounds(sp, 2 * R, n_test)})
             dmax = lanes_close(pf, runner.params_b)
             print(f"sweep d {assign}: fused {wf:.3f} s (n_dispatches "
                   f"{rf['n_dispatches']}), oracle {wo:.3f} s "
@@ -1171,7 +1357,8 @@ def sweep_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50, K=10):
                                            seeds=seeds))
     out["int8_launches"] = read_counts(
         "sweep e (int8, 2 rounds)",
-        {"masked_decode_aggregate": 2 * per_round})["masked_decode_aggregate"]
+        {"masked_decode_aggregate": 2 * per_round,
+         **k6_rounds(sp, 2, n_test)})["masked_decode_aggregate"]
     print(f"sweep e int8: {w8:.3f} s for 2 rounds; msg_bits "
           f"{res8['msg_bits_per_round']:.0f} vs {rk['msg_bits_per_round']:.0f}"
           f"; T_i {res8['T_i'].tolist()}; acc {res8['acc'].tolist()}")
@@ -1521,7 +1708,8 @@ def _leaves(tree):
 
 def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
     """Phase 12: the async engine and the serve CLI on the world (sp,
-    pop, fed) with cohorts of H; no kernel may launch."""
+    pop, fed) with cohorts of H; of the kernels only K6 may launch, L
+    local steps of the CNN a dispatch and an evaluation a round."""
     import tempfile
 
     from repro_torch.checkpoint import ckpt
@@ -1535,6 +1723,17 @@ def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    k6 = dict.fromkeys(k6_launches(0), 0)
+
+    def tally(recs, eng):
+        """Add K6's launches of async rounds ``recs`` of ``eng``."""
+        add(k6_launches(eng.sp.L * sum(r["n_dispatches"] for r in recs),
+                        sum(r["acc"] is not None for r in recs),
+                        len(eng.fed.y_test)))
+
+    def add(launches):
+        for k, v in launches.items():
+            k6[k] += v
 
     def timed_round(eng, **kw):
         torch.cuda.synchronize()
@@ -1556,6 +1755,8 @@ def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
         pop.g[s], pop.g_cloud, pop.B_m, eng.X[s], eng.y[s], eng.mask[s],
         pop.D[s], a, cfg.lr, M=sp.n_edges, L=sp.L, Q=sp.Q,
         alloc_steps=cfg.alloc_steps)
+    tally([rec], eng)
+    add(k6_launches(sp.Q * sp.L))                     # the sync round
     rel = [abs(rec["T_i"] - float(T)) / float(T),
            abs(rec["E_i"] - float(E)) / float(E)]
     dmax = max(float((eng.model_params[k] - params[k]).abs().max())
@@ -1595,6 +1796,7 @@ def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
     out["b"] = [{k: r[k] for k in ("wall_s", "n_dispatches", "n_updates",
                                    "n_stale", "n_aborted", "T_i")}
                 for r in recs]
+    tally(recs, engb)
     print("12b stationary, buffer 5: " + "; ".join(
         f"round {i + 1}: {r['n_dispatches']} dispatches, {r['n_updates']} "
         f"updates ({r['n_stale']} stale, {r['n_aborted']} aborted), wall "
@@ -1619,10 +1821,13 @@ def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
         check(all(np.array_equal(back[k], v.cpu().numpy())
                   for k, v in params_c.items()),
               "12c: the restored checkpoint differs from the params")
-    lines8 = []
+    lines8, engines8 = [], []
     serve.run_serve(traffic="stationary", rounds=1, codec="int8",
-                    log=lines8.append, device=cfg.device)
+                    log=lines8.append, engine_out=engines8,
+                    device=cfg.device)
     r8 = json.loads(lines8[0])
+    tally(recs_c, engines[0])
+    tally([r8], engines8[0])
 
     def bits_a_message(r):          # (updates + one upload an edge) msgs
         return r["msg_bits"] / (r["n_updates"] + engines[0].pop.n_edges)
@@ -1636,7 +1841,7 @@ def async_phase(torch, sp, pop, fed, zero_counts, read_counts, H=50):
     out["c"] = {"serve_s": serve_s, "final_acc": summary["final_acc"],
                 "int8_msg_ratio": ratio}
 
-    read_counts("async phase (12a-c)", {})
+    read_counts("async phase (12a-c)", k6)
     print(f"async phase: peak memory {peak_gb(torch)}")
 
     # ---- d. one profiled always-on round
@@ -2580,7 +2785,8 @@ def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
         k1 = read_counts("16a (lane mesh, 1 rank: IKC clustering + 2 host "
                          "rounds)", {"masked_aggregate": 2 * per_round,
                                      "pairwise_sq_dists":
-                                         S_ * 8 * (10 - 1 + 50 + 1)})
+                                         S_ * 8 * (10 - 1 + 50 + 1),
+                                     **k6_rounds(sp, 2, len(fed.y_test))})
         out["a_k1"] = k1["masked_aggregate"]
         out["a_k2"] = k1["pairwise_sq_dists"]
         check(all(np.array_equal(a, b) for a, b in
@@ -2609,7 +2815,8 @@ def mesh_phase(torch, sp, ref7, round7_s, train15, zero_counts,
         rf, wf = timed(torch, lambda: runner.run(
             _ikc(sw, sp, fed, seeds, labels), 2, seeds=seeds, fused=True))
         read_counts("16a fused (2 rounds)",
-                    {"masked_aggregate": 2 * per_round})
+                    {"masked_aggregate": 2 * per_round,
+                     **k6_rounds(sp, 2, len(fed.y_test))})
         out["a_k1"] += 2 * per_round
         out["a_fused_gap"] = held("fused", rf, runner.params_b,
                                   *ref7["fused"])
@@ -2949,6 +3156,9 @@ def example_phase(torch, mesh16, zero_counts, read_counts):
     def clustering(K):            # K2: 8 restarts x (K-1 + 50 + 1) passes
         return 8 * ((K - 1) + 50 + 1)
 
+    def cnn_rounds(s, rounds):     # K6 of an example's CNN rounds
+        return k6_launches(rounds * s["Q"] * s["L"], rounds, s["n_test"])
+
     def start():
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -2968,7 +3178,8 @@ def example_phase(torch, mesh16, zero_counts, read_counts):
             label = f"17a quickstart_torch ({qs['iters']} rounds)"
             got = read_counts(label, {
                 "masked_aggregate": (qs["Q"] + 1) * qs["iters"],
-                "pairwise_sq_dists": clustering(qs["K"])})
+                "pairwise_sq_dists": clustering(qs["K"]),
+                **cnn_rounds(qs, qs["iters"])})
             witness.read(label, got, {"masked_aggregate_f32":
                                       got["masked_aggregate"]})
             check(np.isfinite(qs["objective"])
@@ -2999,7 +3210,8 @@ def example_phase(torch, mesh16, zero_counts, read_counts):
                      f"(rounds {iters})")
             got = read_counts(label, {
                 "masked_aggregate": (e2e["Q"] + 1) * sum(iters.values()),
-                "pairwise_sq_dists": clustering(10)})
+                "pairwise_sq_dists": clustering(10),
+                **cnn_rounds(e2e, sum(iters.values()))})
             witness.read(label, got, {"masked_aggregate_f32":
                                       got["masked_aggregate"]})
             out["k1"] += got["masked_aggregate"]
@@ -3014,9 +3226,14 @@ def example_phase(torch, mesh16, zero_counts, read_counts):
             recs = example("model_zoo_launcher_torch").main(
                 ["--smoke", "--out", os.path.join(tmp, "zoo.jsonl")])
             want = {"masked_aggregate": 0, "masked_decode_aggregate": 0,
-                    "pairwise_sq_dists": 0}
+                    "pairwise_sq_dists": 0, **k6_launches(0)}
             by_entry = {}
+            sp0 = SystemParams()          # the launcher's L and Q
             for r in recs:
+                if r["arch"] == "hfl-cnn":
+                    for k, v in cnn_rounds({"Q": sp0.Q, "L": sp0.L, **r},
+                                           r["rounds"]).items():
+                        want[k] += v
                 n = (r["rounds"] * per_round
                      * -(-r["n_leaves"] // LEAF_CAPACITY))
                 want["masked_aggregate" if r["codec"] == "none"
@@ -3120,6 +3337,7 @@ def main() -> int:
     from repro_torch.core.framework import FrameworkConfig, HFLFramework
     from repro_torch.data import make_dataset, partition_noniid
     from repro_torch.kernels import build
+    from repro_torch.kernels.conv_pool import ops as cp
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.hier_agg import ops as ha
     from repro_torch.kernels.kmeans_dist import ops as kd
@@ -3130,7 +3348,10 @@ def main() -> int:
                     ha.masked_decode_aggregate_leaves_batched_cuda,
                 "weighted_aggregate":
                     ha.weighted_aggregate_leaves_batched_cuda,
-                "flash_attention": fa.flash_attention_cuda}
+                "flash_attention": fa.flash_attention_cuda,
+                "conv_relu_pool": cp.conv_relu_pool_cuda,
+                "conv_pool_dw": cp.conv_pool_dw_cuda,
+                "conv_pool_dx": cp.conv_pool_dx_cuda}
 
     def zero_counts():
         for fn in counters.values():
@@ -3168,6 +3389,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- kernels
     kres = kernel_phase(torch, rate)
+    conv_rows = conv_pool_phase(torch, rate)
 
     # ------------------------------------------- main path: uncompressed
     sp = SystemParams()
@@ -3195,9 +3417,13 @@ def main() -> int:
     # steps and the labels
     n_leaves = len(fw.model_params)
     per_round = sp.Q + 1
+    # K6: per round Q*L local steps (2 forward, 2 dW and 1 dx launches
+    # each) and the evaluation's batches (2 forward launches each)
+    n_test = len(fed.y_test)
     launches = read_counts("uncompressed path", {
         "masked_aggregate": 2 * per_round,
-        "pairwise_sq_dists": 8 * ((cfg.K - 1) + 50 + 1)})
+        "pairwise_sq_dists": 8 * ((cfg.K - 1) + 50 + 1),
+        **k6_rounds(sp, 2, n_test)})
     labels = fw.scheduler.state.clusters
 
     # ---------------------------------------------- main path: int8 codec
@@ -3210,7 +3436,8 @@ def main() -> int:
     assigned8 = record_assignments(fw8)
     recs8 = run_rounds(torch, fw8, (1, 2), "int8")
     launches["masked_decode_aggregate_i8"] = read_counts(
-        "int8 path", {"masked_decode_aggregate": 2 * per_round}
+        "int8 path", {"masked_decode_aggregate": 2 * per_round,
+                      **k6_rounds(sp, 2, n_test)}
     )["masked_decode_aggregate"]
     for i, (r, r8) in enumerate(zip(recs, recs8)):
         check(all(np.array_equal(a, b)
@@ -3232,7 +3459,8 @@ def main() -> int:
         fwc = HFLFramework(sp, pop, fed, codec_cfg(codec), labels=labels)
         run_rounds(torch, fwc, (1,), codec)
         launches[f"masked_decode_aggregate_{short}"] = read_counts(
-            f"{codec} path", {"masked_decode_aggregate": per_round}
+            f"{codec} path", {"masked_decode_aggregate": per_round,
+                              **k6_rounds(sp, 1, n_test)}
         )["masked_decode_aggregate"]
         del fwc
 
@@ -3493,6 +3721,13 @@ def main() -> int:
             "work": work, **({"cold_l2_ms": r["cold_ms"]}
                              if "cold_ms" in r else {}),
             **extra.get(key, {})})
+    kernels.append({
+        "name": "conv_relu_pool", "route": "cuda",
+        "source": "src/repro_torch/csrc/conv_pool.cu", "replaces": None,
+        "launches": {k: launches[k] for k in k6_launches(0)},
+        "work": "the CNN's conv blocks (FashionMNIST's two at H=50 and "
+                "200 devices, CIFAR's conv 1 at 50) x 700 samples, forward "
+                "and backward", "rows": conv_rows})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,8 @@ def main(argv=None):
     summary = fw.run(verbose=True)
     print(f"[{time.time()-t0:5.1f}s] finished: {summary['iters']} rounds, "
           f"acc={summary['final_acc']:.3f}, E+λT={summary['objective']:.0f}")
-    summary["K"], summary["Q"] = cfg.K, sp.Q
+    summary["K"], summary["Q"], summary["L"] = cfg.K, sp.Q, sp.L
+    summary["n_test"] = len(yt)
     return summary
 
 

@@ -75,7 +75,8 @@ def main(argv=None):
               or prop["final_acc"] >= base["final_acc"])
     print(f"paper claim (proposed framework reduces system cost): "
           f"{'REPRODUCED' if better else 'NOT reproduced at this scale'}")
-    return {"results": results, "reproduced": better, "Q": sp.Q}
+    return {"results": results, "reproduced": better, "Q": sp.Q, "L": sp.L,
+            "n_test": len(yt)}
 
 
 if __name__ == "__main__":

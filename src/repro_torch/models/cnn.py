@@ -8,9 +8,13 @@
   linear layer over a 1x10x10 crop; ~10 KB as in Table I.
 
 Layouts are ``repro``'s: NHWC images and HWIO conv weights, so params
-and inputs cross between the packages unchanged. The conv is an im2col
-matmul and the pool a reshape max, as in the reference; both are plain
-tensor ops, so ``torch.func.vmap`` batches them over a device axis.
+and inputs cross between the packages unchanged. ``cnn_apply`` runs each
+conv -> ReLU -> pool block through ``kernels.conv_pool.ops``
+``conv_relu_pool``: the fused kernel K6 on a CUDA input, and on any
+other the plain composition, an im2col matmul and a reshape max as in
+the reference (``im2col_conv``, ``maxpool2``), plain tensor ops that
+``torch.func.vmap`` batches over a device axis. ``mini_apply``'s 2x2
+conv always takes the plain composition.
 """
 from __future__ import annotations
 
@@ -18,26 +22,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.conv_pool import ops as conv_pool
 from repro_torch.models.layers import he_normal
 from repro_torch.utils import Params
-
-
-def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """VALID 2D conv via im2col + GEMM. x: (B, H, W, C), w: (kh, kw, C, O)."""
-    kh, kw, ci, co = w.shape
-    B, H, W, C = x.shape
-    oh, ow = H - kh + 1, W - kw + 1
-    patches = torch.stack([x[:, i:i + oh, j:j + ow, :]
-                           for i in range(kh) for j in range(kw)], dim=3)
-    return patches.reshape(B, oh, ow, kh * kw * C) @ w.reshape(kh * kw * ci,
-                                                               co)
-
-
-def _maxpool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2/2 max pool via reshape (odd edges truncated, VALID)."""
-    B, H, W, C = x.shape
-    x = x[:, :H // 2 * 2, :W // 2 * 2, :]
-    return x.reshape(B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
 
 
 def cnn_init(generator: torch.Generator, image_hw: Tuple[int, int],
@@ -62,8 +49,8 @@ def cnn_init(generator: torch.Generator, image_hw: Tuple[int, int],
 
 def cnn_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, H, W, C) in [0,1] -> logits (B, n_classes)."""
-    x = _maxpool2(torch.relu(_conv(x, params["conv1"])))
-    x = _maxpool2(torch.relu(_conv(x, params["conv2"])))
+    x = conv_pool.conv_relu_pool(x, params["conv1"])
+    x = conv_pool.conv_relu_pool(x, params["conv2"])
     x = x.reshape(x.shape[0], -1)
     x = torch.relu(x @ params["fc1"])
     return x @ params["fc2"]
@@ -81,7 +68,8 @@ def mini_init(generator: torch.Generator, n_classes: int = 10,
 
 def mini_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, 10, 10, 1) single-channel random crop."""
-    x = _maxpool2(torch.relu(_conv(x, params["conv"])))
+    x = conv_pool.maxpool2(torch.relu(conv_pool.im2col_conv(
+        x, params["conv"])))
     x = x.reshape(x.shape[0], -1)
     return x @ params["fc"]
 

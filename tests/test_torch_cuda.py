@@ -46,6 +46,18 @@ through K5 (one launch a hybrid super-block's attention layer, on the
 tf32x3 path in f32) against its plain prefill, atol 1e-4 of the largest
 logit.
 
+K6, the CNN's fused conv -> ReLU -> max-pool, at the FashionMNIST and
+CIFAR blocks for G = 1, 50 and 200 groups of 700 samples: y to rtol/atol
+1e-5 (the kernel sums the 25*C taps in another order than cuBLAS) and
+idx equal wherever a window has no near-tie (``TIE``); dW and dx from
+the kernel's own idx against the plain backward from that idx, and
+``vmap(grad(masked_loss))`` against the plain im2col path over samples
+free of near-ties (also at fc1's ReLU), atol 1e-4 / rtol 1e-5 (the
+MoE-gradient tolerance); five ``cohort_local_sgd`` steps, params atol
+1e-5 (tests/test_torch_train.py's); dW the same bits on a second run;
+the same comparison at G = 2 for B from 1 to 512, and the entries'
+shape rule.
+
 Flash attention: f32 to 2e-5 absolute and relative (the kernel scales q
 before the dot, the plain version divides the scores: the reference's
 own figure). bf16: both sides compute in f32 from the same bf16 inputs
@@ -1099,3 +1111,285 @@ def test_jamba_smoke_kernel_prefill_matches_plain(cuda):
     want = make_prefill_step(cfg, "plain")(params, {"tokens": tokens})
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+# ------------------------------------------- K6 conv -> ReLU -> max-pool
+
+# the CNN's conv blocks: (H, C, O) of the input each configuration feeds
+CONV_BLOCKS = {"fmnist-conv1": (28, 1, 15), "fmnist-conv2": (12, 15, 28),
+               "cifar-conv1": (32, 3, 15), "cifar-conv2": (14, 15, 28)}
+CONV_B = 700                  # samples a device: the padded D_max
+# a window whose top two conv outputs (or its max and 0) lie this close
+# is a near-tie: the kernel's and cuBLAS's f32 sums of the 25*C taps
+# differ by up to 4e-6 at outputs of ~4 (measured at the four blocks,
+# G=50), so another summation order may pick another winner there
+TIE = 5e-5
+
+
+def _block_inputs(name, G, device, seed=0):
+    H, C, O = CONV_BLOCKS[name]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((G, CONV_B, H, H, C), generator=g)
+    w = torch.randn((G, 5, 5, C, O), generator=g) * (2.0 / (25 * C)) ** 0.5
+    return x.to(device), w.to(device)
+
+
+def _plain_groups(fn, *args, chunk=25):
+    """``fn`` over the group axis in chunks of groups: the plain maths
+    of 200 groups at once would hold the im2col patches of all."""
+    outs = [fn(*(a[i:i + chunk] for a in args))
+            for i in range(0, args[0].shape[0], chunk)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+def _near_ties(z):
+    """(G, B, Hp, Wp, O) True at each pooling window of the conv outputs
+    z (G, B, Ho, Wo, O) whose winner is within TIE of the runner-up or
+    of 0."""
+    G, B, Ho, Wo, O = z.shape
+    win = z.reshape(G, B, Ho // 2, 2, Wo // 2, 2, O).permute(
+        0, 1, 2, 4, 6, 3, 5).reshape(G, B, Ho // 2, Wo // 2, O, 4)
+    top = win.topk(2, dim=-1).values
+    return ((top[..., 0] - top[..., 1] < TIE) & (top[..., 0] > -TIE)) \
+        | (top[..., 0].abs() < TIE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 50, 200])
+@pytest.mark.parametrize("name", sorted(CONV_BLOCKS))
+def test_conv_pool_kernels_match_plain(cuda, name, G):
+    """Forward y and idx (idx where no window has a near-tie) against the
+    plain maths; dW and dx from the kernel's own idx against the plain
+    backward from the same idx, at the main path's B and the round's and
+    the sweep's G."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    x, w = _block_inputs(name, G, cuda)
+    n0 = (cp.conv_relu_pool_cuda.launches, cp.conv_pool_dw_cuda.launches,
+          cp.conv_pool_dx_cuda.launches)
+    y, idx = cp.conv_relu_pool_cuda(x, w)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        y_ref, idx_ref = _plain_groups(cp.conv_relu_pool_groups_ref, x, w)
+        z = _plain_groups(lambda a, b: torch.stack(
+            [cp.im2col_conv(ag, bg) for ag, bg in zip(a, b)]), x, w)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    clear = ~_near_ties(z)
+    assert float(clear.float().mean()) > 0.99
+    assert torch.equal(idx[clear], idx_ref[clear])
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)
+                     ).to(cuda) * 1e-3
+    dw = cp.conv_pool_dw_cuda(x, dy, idx)
+    dx = cp.conv_pool_dx_cuda(w, dy, idx)
+    torch.cuda.synchronize()
+    assert (cp.conv_relu_pool_cuda.launches, cp.conv_pool_dw_cuda.launches,
+            cp.conv_pool_dx_cuda.launches) == tuple(n + 1 for n in n0)
+    torch.testing.assert_close(
+        dw, _plain_groups(cp.conv_pool_dw_ref, x, dy, idx), rtol=1e-5,
+        atol=1e-4)
+    torch.testing.assert_close(
+        dx, _plain_groups(cp.conv_pool_dx_ref, w, dy, idx), rtol=1e-5,
+        atol=1e-4)
+    assert torch.equal(dw, cp.conv_pool_dw_cuda(x, dy, idx))  # same bits
+
+
+def _cnn_cohort(which, G, device, seed=0):
+    from repro_torch.models import cnn
+    hw, c = {"fmnist": (28, 1), "cifar": (32, 3)}[which]
+    g = torch.Generator().manual_seed(seed)
+    p = cnn.cnn_init(g, (hw, hw), c, device="cpu")
+    params = {k: torch.stack([v + 0.01 * torch.randn(v.shape, generator=g)
+                              for _ in range(G)]).to(device)
+              for k, v in p.items()}
+    X = torch.rand((G, CONV_B, hw, hw, c), generator=g).to(device)
+    y = torch.randint(0, 10, (G, CONV_B), generator=g).to(device)
+    sizes = torch.randint(400, CONV_B + 1, (G,), generator=g)
+    mask = (torch.arange(CONV_B)[None] < sizes[:, None]).float().to(device)
+    return params, X, y, mask
+
+
+def _untied_mask(params, X, mask):
+    """``mask`` with every sample zeroed whose plain forward has a
+    near-tie: in either conv block's pooling, or a pre-activation of fc1
+    within TIE of ReLU's kink (an H100 run at G=50 found one there, that
+    moved the device's fc1 and conv gradients by 1.4e-3 and 2e-4 while
+    fc2's agreed to 4e-7; the plain path sided with float64 by chance).
+    There the kernel's sums may rightly decide the other way."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    keep = torch.ones_like(mask, dtype=torch.bool)
+    with torch.no_grad():
+        for i in range(0, X.shape[0], 25):
+            h = X[i:i + 25]
+            for name in ("conv1", "conv2"):
+                w = params[name][i:i + 25]
+                z = torch.stack([cp.im2col_conv(a, b)
+                                 for a, b in zip(h, w)])
+                keep[i:i + 25] &= ~_near_ties(z).flatten(2).any(-1)
+                h = torch.stack([cp.maxpool2(torch.relu(zg)) for zg in z])
+            pre = h.flatten(2) @ params["fc1"][i:i + 25]
+            keep[i:i + 25] &= ~(pre.abs() < TIE).any(-1)
+    return mask * keep
+
+
+def _plain_path(monkeypatch):
+    """The dispatcher's plain version on the card: no device is its
+    kernel device."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    monkeypatch.setattr(cp, "KERNEL_DEVICE", None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 50])
+@pytest.mark.parametrize("which", ["fmnist", "cifar"])
+def test_conv_pool_vmap_grad_matches_plain(cuda, monkeypatch, which, G):
+    """``vmap(grad(masked_loss))`` of the CNN through K6 (both blocks:
+    dW of each, conv 2's dx into conv 1's dW) against the plain im2col
+    path on the card, over samples free of near-ties: atol 1e-4, rtol
+    1e-5."""
+    from repro_torch.core.local_train import masked_loss
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.models import cnn
+    import functools
+    params, X, y, mask = _cnn_cohort(which, G, cuda)
+    mask = _untied_mask(params, X, mask)
+    step = torch.func.vmap(torch.func.grad(
+        functools.partial(masked_loss, cnn.cnn_apply)))
+    n0 = cp.conv_pool_dx_cuda.launches
+    got = step(params, X, y, mask)
+    torch.cuda.synchronize()
+    assert cp.conv_pool_dx_cuda.launches == n0 + 1     # conv 2's input only
+    _plain_path(monkeypatch)
+    want = {k: torch.cat(v) for k, v in zip(params, zip(*(
+        step({k: v[i:i + 25] for k, v in params.items()}, X[i:i + 25],
+             y[i:i + 25], mask[i:i + 25]).values()
+        for i in range(0, G, 25))))}
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_conv_pool_local_sgd_matches_plain(cuda, monkeypatch):
+    """``cohort_local_sgd`` over L = 5 steps (H = 50 devices, D_max =
+    700) through K6: in one call, every block on the kernel, none on the
+    plain version, no host synchronisation; and step by step against the
+    plain path, params atol 1e-5 (the tolerance of
+    tests/test_torch_train.py) after the 5 steps. The steps run one call
+    each because the near-tie screen (``_untied_mask``) has to read each
+    step's params: a flip at a kink moves a device's params by ~1e-5."""
+    from repro_torch import trace
+    from repro_torch.core.local_train import cohort_local_sgd
+    from repro_torch.kernels.conv_pool import ops as cp
+    from repro_torch.models import cnn
+    params, X, y, mask = _cnn_cohort("fmnist", 50, cuda)
+    tracer = trace.Tracer(cuda)
+
+    def refuse(*a):
+        raise AssertionError("the kernel path ran the plain conv")
+    monkeypatch.setattr(cp, "im2col_conv", refuse)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with trace.use(tracer):
+            whole = cohort_local_sgd(cnn.cnn_apply, params, X, y, mask, 5,
+                                     0.01)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tracer.counters["conv.kernel_blocks"] == 10
+    assert "conv.plain_blocks" not in tracer.counters
+    assert all(bool(torch.isfinite(v).all()) for v in whole.values())
+    monkeypatch.undo()
+    got = want = params
+    for _ in range(5):
+        untied = _untied_mask(want, X, mask)
+        got = cohort_local_sgd(cnn.cnn_apply, got, X, y, untied, 1, 0.01)
+        _plain_path(monkeypatch)
+        want = cohort_local_sgd(cnn.cnn_apply, want, X, y, untied, 1, 0.01)
+        monkeypatch.undo()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_conv_pool_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.conv_pool import ops as cp
+    x, w = _block_inputs("fmnist-conv2", 1, cuda)
+    y, idx = cp.conv_relu_pool_cuda(x, w)
+    bad = [(cp.conv_relu_pool_cuda, (x.double(), w.double())),
+           (cp.conv_relu_pool_cuda, (x.transpose(2, 3), w)),
+           (cp.conv_relu_pool_cuda, (x, w.cpu())),
+           (cp.conv_relu_pool_cuda, (x[..., :14], w[..., :14, :])),
+           (cp.conv_pool_dw_cuda, (x, y, idx.float())),
+           (cp.conv_pool_dw_cuda, (x, y.transpose(2, 3), idx)),
+           (cp.conv_pool_dx_cuda, (w, y.cpu(), idx)),
+           (cp.conv_pool_dx_cuda, (w, y[:, :, :3], idx[:, :, :3]))]
+    for fn, args in bad:
+        with pytest.raises(ValueError):
+            fn(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,w_shape,takes", [
+    (28, 28, 1, (5, 5, 1, 15), True),      # fmnist conv 1
+    (12, 12, 15, (5, 5, 15, 28), True),    # fmnist conv 2
+    (32, 32, 3, (5, 5, 3, 15), True),      # cifar conv 1
+    (14, 14, 15, (5, 5, 15, 28), True),    # cifar conv 2
+    (10, 10, 1, (2, 2, 1, 10), False),     # the mini model's 2x2 conv
+    (27, 27, 1, (5, 5, 1, 15), False),     # odd conv output
+    (28, 27, 1, (5, 5, 1, 15), False),
+    (28, 28, 2, (5, 5, 2, 15), False),     # a pair the library lacks
+    (28, 28, 1, (5, 5, 1, 16), False),
+    (28, 28, 1, (5, 5, 3, 15), False),     # weights of other channels
+    (5, 5, 1, (5, 5, 1, 15), False),       # no conv output to pool
+    (130, 130, 3, (5, 5, 3, 15), False),   # a stage beyond a block
+])
+def test_conv_pool_shape_rule(cuda, H, W, C, w_shape, takes):
+    from repro_torch.kernels.conv_pool import ops as cp
+    assert cp.kernel_takes_shapes(H, W, C, w_shape) is takes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 33, 512])
+@pytest.mark.parametrize("name", sorted(CONV_BLOCKS))
+def test_conv_pool_kernels_take_any_batch(cuda, name, B):
+    """The launch plan each entry makes covers any B: one sample, a
+    partial stage and a partial block, against the plain maths (G = 2;
+    y and idx where no window has a near-tie, dW and dx from the kernel's
+    own idx), with the tolerances of ``test_conv_pool_kernels_match_plain``
+    and the partial sums of dW in as many blocks as the library says."""
+    from repro_torch.kernels.conv_pool import ops as cp
+    x, w = _block_inputs(name, 2, cuda)
+    x = x[:, :B].contiguous()
+    H, C, O = CONV_BLOCKS[name]
+    assert 1 <= cp._entry("conv_pool_dw_chunks")(B, H, H, C, O) <= B
+    y, idx = cp.conv_relu_pool_cuda(x, w)
+    y_ref, idx_ref = cp.conv_relu_pool_groups_ref(x, w)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    z = torch.stack([cp.im2col_conv(a, b) for a, b in zip(x, w)])
+    clear = ~_near_ties(z)
+    assert torch.equal(idx[clear], idx_ref[clear])
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(cuda) * 1e-3
+    torch.testing.assert_close(cp.conv_pool_dw_cuda(x, dy, idx),
+                               cp.conv_pool_dw_ref(x, dy, idx), rtol=1e-5,
+                               atol=1e-4)
+    torch.testing.assert_close(cp.conv_pool_dx_cuda(w, dy, idx),
+                               cp.conv_pool_dx_ref(w, dy, idx), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_conv_relu_pool_on_the_card_never_falls_back(cuda):
+    """The dispatcher reads the device alone: a CUDA input the kernel
+    does not take (another dtype, an odd conv output) raises instead of
+    taking the plain version, and counts as a kernel block."""
+    from repro_torch import trace
+    from repro_torch.kernels.conv_pool import ops as cp
+    x, w = _block_inputs("fmnist-conv1", 1, cuda)
+    tracer = trace.Tracer(cuda)
+    with trace.use(tracer):
+        for args in ((x[0].double(), w[0].double()),
+                     (x[0, :, :27, :27].contiguous(), w[0])):
+            with pytest.raises(ValueError):
+                cp.conv_relu_pool(*args)
+    assert {k: v for k, v in tracer.counters.items()
+            if k.startswith("conv.")} == {"conv.kernel_blocks": 2}
