@@ -66,6 +66,11 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
                 [m for m in bench["per_layer"] if _reports(m, name)])
 
 
+def reads_the_trace(metrics: List[Dict]) -> bool:
+    """Whether any of ``metrics`` is read from the device trace."""
+    return any(m["source"] == "device_trace" for m in metrics)
+
+
 def driver(name: str):
     """The traffic driver ``drivers/<name>.py``."""
     return importlib.import_module(f"hflbench.drivers.{name}")

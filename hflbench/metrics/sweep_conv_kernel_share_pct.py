@@ -1,0 +1,4 @@
+"""sweep_conv_kernel_share_pct: ``conv_kernel_share_pct`` of the sweep
+cell, which reports ``rounds_per_s`` end to end where the round cells
+report ``device_ms_per_round``."""
+from hflbench.metrics.conv_kernel_share_pct import read  # noqa: F401

@@ -7,10 +7,11 @@ missing, the world, the program's set-up and one warm-up unit of work)
 is timed as ``setup_s``; the window then runs whole units of work back
 to back until ``--seconds`` have passed. ``--trace 1`` records the
 device trace of the window and reports the cell's per-layer metrics
-instead of its end-to-end ones. After the window the program's state is
-freed and the reference judges what the program produced; the numbers
-compared are printed beside their limits, and the last line of standard
-output is the result as JSON.
+instead of its end-to-end ones; a cell whose end-to-end metrics read
+the device trace records it in every run on the card. After the window
+the program's state is freed and the reference judges what the program
+produced; the numbers compared are printed beside their limits, and the
+last line of standard output is the result as JSON.
 """
 import time
 
@@ -94,7 +95,10 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     launches0 = program.aggregation_launches()
-    tracer = harness.DeviceTrace(torch) if trace else None
+    # the device trace runs in every traced run, and on the card in each
+    # run of a cell whose end-to-end metrics read it
+    traced = trace or (on_card and harness.reads_the_trace(cell.end_to_end))
+    tracer = harness.DeviceTrace(torch) if traced else None
     if tracer:
         tracer.__enter__()
     w0 = time.perf_counter_ns()
@@ -115,6 +119,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
         run.events = [e for e in events if e[2] > w0 and e[1] < w1]
         run.trace = harness.reduce_trace(run.events, drv.rec.spans, w0, w1)
         del tracer
+        print(f"trace {len(run.events)} device operations read in "
+              f"{(time.perf_counter_ns() - w1) / 1e9:.3f} s", file=sys.stderr)
 
     drv.release()
     if on_card:

@@ -47,9 +47,12 @@ def test_neither_counter_reads_none():
 
 
 def test_every_cell_reports_it():
-    for cell in ("fmnist-round-h50", "cifar-round-h50", "fmnist-sweep-s4"):
+    for cell, name in (("fmnist-round-h50", "conv_kernel_share_pct"),
+                       ("cifar-round-h50", "conv_kernel_share_pct"),
+                       ("fmnist-round-h30", "conv_kernel_share_pct"),
+                       ("fmnist-sweep-s4", "sweep_conv_kernel_share_pct")):
         names = {m["name"] for m in harness.find_cell(cell).per_layer}
-        assert "conv_kernel_share_pct" in names
+        assert name in names
 
 
 def test_a_cpu_window_counts_every_block_plain():

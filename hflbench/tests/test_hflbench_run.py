@@ -47,7 +47,7 @@ def run_tiny(name, capsys, seconds=1.0, d=(20, 40), world=(12, 2, 3, 6)):
 
 
 @pytest.mark.parametrize("name", ["fmnist-round-h50", "cifar-round-h50",
-                                  "fmnist-sweep-s4"])
+                                  "fmnist-sweep-s4", "fmnist-round-h30"])
 def test_the_program_agrees_with_the_reference(name, capsys):
     """At 150-200 samples a device: with fewer, a round's 25 steps
     amplify float32 rounding beyond the limits set at the cells' size
@@ -56,7 +56,10 @@ def test_the_program_agrees_with_the_reference(name, capsys):
     assert res["correct"], res["checks"]
     assert res["failed"] == 0 and res["attempted"] >= 1
     assert list(res)[-1] == "checks"
-    assert set(res["metrics"]) == {"rounds_per_s", "setup_s"}
+    # the CPU records no device trace: the host's metrics alone
+    host = {m["name"] for m in harness.find_cell(name).end_to_end
+            if m["source"] == "host_clock"}
+    assert "setup_s" in host and set(res["metrics"]) == host
 
 
 def test_the_lower_precision_control_is_not_correct():

@@ -2,7 +2,6 @@
 
     python -m pytest -q hflbench/tests
 """
-import ast
 import json
 import os
 import shutil
@@ -17,6 +16,7 @@ PKG = ROOT / "hflbench"
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from hflbench import arith, check, harness, reference  # noqa: E402
+from hflbench.tests import contract  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 FMNIST = json.loads((PKG / "configs/hfl-cnn-fmnist-table1.json").read_text())
@@ -49,40 +49,38 @@ def test_a_dropped_in_cell_is_found_without_a_code_edit(tmp_path):
     shutil.copytree(PKG, tmp_path / "hflbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     traffic = json.loads((PKG / "traffic/round-ikc-h50.json").read_text())
-    traffic["H"] = 30
-    (tmp_path / "hflbench/traffic/round-ikc-h30.json").write_text(
+    traffic["H"] = 20
+    (tmp_path / "hflbench/traffic/round-ikc-h20.json").write_text(
         json.dumps(traffic))
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": "fmnist-round-h30",
+    bench["workloads"].append({"name": "fmnist-round-h20",
                                "config": "hfl-cnn-fmnist-table1",
-                               "traffic": "round-ikc-h30", "chips": 1,
-                               "why": "the paper's 30 % regime"})
+                               "traffic": "round-ikc-h20", "chips": 1,
+                               "why": "a 20 % cohort"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    (tmp_path / "hflbench/limits/fmnist-round-h30.json").write_text(
+    (tmp_path / "hflbench/limits/fmnist-round-h20.json").write_text(
         json.dumps({"update_gap": {"limit": 0.02}}))
     code = ("from hflbench import check, harness; c = harness.find_cell("
-            "'fmnist-round-h30'); print(c.traffic['H'], c.cfg['name'], "
+            "'fmnist-round-h20'); print(c.traffic['H'], c.cfg['name'], "
             "check.limits(c.name)['update_gap'], "
             "harness.driver(c.traffic['driver']).__file__)")
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          env={**os.environ, "PYTHONPATH": str(tmp_path)},
                          capture_output=True, text=True, check=True).stdout
     h, cfg, limit, drv = out.split()
-    assert (h, cfg, limit) == ("30", "hfl-cnn-fmnist-table1", "0.02")
+    assert (h, cfg, limit) == ("20", "hfl-cnn-fmnist-table1", "0.02")
     assert Path(drv).resolve().is_relative_to(tmp_path.resolve())
 
 
 def test_benchmark_json_keys_and_names():
+    """The tree keeps the contract new cells go in under
+    (``contract.check_contract``: names, the accepted cells, counts of
+    cells and chips, configurations used and their cuts stated)."""
     assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
-    assert [w["name"] for w in BENCH["workloads"]] == [
-        "fmnist-round-h50", "cifar-round-h50", "fmnist-sweep-s4"]
-    assert {m["name"] for m in BENCH["end_to_end"]} == {"rounds_per_s",
-                                                        "setup_s"}
-    for c in BENCH["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert c["reduced"] == []
+    contract.check_contract(ROOT)
+    assert {m["name"] for m in BENCH["end_to_end"]} == {
+        "rounds_per_s", "device_ms_per_round", "setup_s"}
 
 
 # ---------------------------------------------------------- arithmetic
@@ -130,60 +128,19 @@ def test_k1_hop_bytes():
 
 # ------------------------------------------------------------- imports
 
-def _imports(path: Path):
-    """Top-level names of the modules a file imports (relative imports
-    resolved to this package)."""
-    out = set()
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            out |= {a.name for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
-            out.add("hflbench" if node.level else node.module)
-    return out
-
-
-def _internal(path: Path):
-    """The package's own modules that ``path`` imports."""
-    mods = set()
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.ImportFrom) and node.module and \
-                node.module.split(".")[0] == "hflbench":
-            mods.add(node.module)
-            mods |= {f"{node.module}.{a.name}" for a in node.names}
-        elif isinstance(node, ast.Import):
-            mods |= {a.name for a in node.names
-                     if a.name.split(".")[0] == "hflbench"}
-    files = set()
-    for m in mods:
-        parts = m.split(".")[1:]
-        if not parts:
-            continue
-        rel = Path(*parts)
-        for cand in (PKG / rel.with_suffix(".py"), PKG / rel / "__init__.py"):
-            if cand.is_file():
-                files.add(cand)
-    return files
-
-
 def test_nothing_in_the_benchmark_imports_jax_or_the_reference_package():
     for path in PKG.rglob("*.py"):
-        tops = {m.split(".")[0] for m in _imports(path)}
+        tops = {m.split(".")[0] for m in contract.imports(path)}
         assert not tops & {"jax", "jaxlib", "flax", "repro"}, path
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    todo = [PKG / "reference.py", PKG / "check.py", PKG / "ref_ikc.py"]
-    seen = set()
-    while todo:
-        path = todo.pop()
-        if path in seen:
-            continue
-        seen.add(path)
-        tops = {m.split(".")[0] for m in _imports(path)}
-        assert not tops & {"jax", "jaxlib", "flax", "repro",
-                           "repro_torch"}, path
-        todo += list(_internal(path))
-    assert PKG / "world.py" in seen
+    """Neither ``check.py`` nor any ``reference*.py`` or ``ref_*.py``, nor
+    what they import of this package, imports the program or JAX."""
+    assert contract.references_importing_the_program(PKG) == {}
+    seen = contract.reference_closure(PKG)
+    assert {PKG / "reference.py", PKG / "ref_ikc.py",
+            PKG / "world.py"} <= seen
 
 
 def test_forbidden_modules_compare_whole_top_level_names():
@@ -195,14 +152,7 @@ def test_forbidden_modules_compare_whole_top_level_names():
 
 
 def test_the_reference_loads_no_program_module_at_run_time():
-    code = ("import sys; import hflbench.check, hflbench.reference; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('repro', 'repro_torch', 'jax', 'jaxlib', 'flax')]; "
-            "print(bad)")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env={**os.environ, "PYTHONPATH": str(ROOT)},
-                         capture_output=True, text=True, check=True).stdout
-    assert out.strip() == "[]"
+    assert contract.program_modules_the_references_load(ROOT) == []
 
 
 def test_run_refuses_without_a_card(tmp_path):

@@ -77,8 +77,8 @@ def _reported(cell):
 def test_each_cell_lists_the_readers_that_find_something():
     assert set(NEW) - {"sweep_allocate_ms", "sweep_train_ms",
                        "sweep_aggregate_ms"} <= _reported("fmnist-round-h50")
-    assert {"alloc_step_us", "pad_share_pct", "sweep_allocate_ms",
-            "sweep_train_ms", "sweep_aggregate_ms"} <= \
+    assert {"sweep_alloc_step_us", "sweep_pad_share_pct",
+            "sweep_allocate_ms", "sweep_train_ms", "sweep_aggregate_ms"} <= \
         _reported("fmnist-sweep-s4")
     assert not {"alloc_ops_per_step", "cluster_kmeans_s"} & \
         _reported("fmnist-sweep-s4")
@@ -203,3 +203,66 @@ def test_a_program_without_the_tracer_gives_none(which, round_run,
     run.events = [("op", 0, 1)]
     for name in NEW:
         assert read(name, run) is None, name
+
+
+# ------------------------------------------- the round cells' device time
+
+SHARED = ("k1_roofline_pct", "idle_pct", "peak_gb", "alloc_step_us",
+          "pad_share_pct", "conv_kernel_share_pct")
+
+
+def _traced(run, busy_s, window_s=10.0):
+    run = copy.copy(run)
+    run.trace = {"busy_s": busy_s, "window_s": window_s}
+    return run
+
+
+def test_device_ms_per_round_is_the_device_time_over_the_rounds(round_run):
+    run = _traced(round_run, 2.5)
+    assert read("device_ms_per_round", run) == pytest.approx(
+        2500.0 / round_run.work)
+    assert read("device_ms_per_round", round_run) is None
+    idle = copy.copy(run)
+    idle.work = 0
+    assert read("device_ms_per_round", idle) is None
+
+
+def test_step_mfu_is_the_window_flops_over_the_device_time(round_run):
+    from hflbench import arith
+    run = _traced(round_run, 0.5)
+    flops = round_run.driver.window_flops()
+    assert flops > 0
+    assert read("step_mfu_pct", run) == pytest.approx(
+        100.0 * flops / (0.5 * arith.PEAK_F32_FLOPS))
+    # never above the window's share, which counts the idle time too
+    assert read("step_mfu_pct", run) >= read("mfu_pct", run)
+    assert read("step_mfu_pct", round_run) is None
+    assert read("step_mfu_pct", _traced(round_run, 0.0)) is None
+
+
+def test_the_loop_rate_is_rounds_per_s(round_run):
+    assert read("loop_rounds_per_s", round_run) == \
+        read("rounds_per_s", round_run) > 0
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_the_sweeps_copy_reads_as_the_round_cells_reader(name, sweep_run):
+    run = _traced(sweep_run, 1.0)
+    run.window_peak = 5e9
+    run.events = []
+    assert read(f"sweep_{name}", run) == read(name, run)
+    cell = harness.find_cell("fmnist-sweep-s4")
+    assert f"sweep_{name}" in {m["name"] for m in cell.per_layer}
+    assert name not in {m["name"] for m in cell.per_layer}
+
+
+def test_only_the_round_cells_record_the_trace_untraced():
+    """The sweep's rate is never read under the profiler; each round
+    cell's device time is read from a trace in every run."""
+    assert not harness.reads_the_trace(
+        harness.find_cell("fmnist-sweep-s4").end_to_end)
+    for cell in ("fmnist-round-h50", "cifar-round-h50", "fmnist-round-h30"):
+        ends = harness.find_cell(cell).end_to_end
+        assert harness.reads_the_trace(ends)
+        assert {m["name"] for m in ends} == {"device_ms_per_round",
+                                              "setup_s"}
